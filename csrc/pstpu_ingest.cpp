@@ -5,8 +5,8 @@
 // HDF5 reads per STI refresh). In this framework HDF5 decoding stays on
 // h5py's C core; THIS file owns the step between the decoded sample span
 // and the device transfer: slicing ntime strided frames out of the span
-// and packing them into the plane-major / time-major layouts the TPU
-// kernels consume. These are pure memory-movement loops that numpy can
+// and packing them into the plane-major / time-major layouts the device
+// programs consume. These are pure memory-movement loops that numpy can
 // only express through temporaries; here they are single-pass, cache-
 // blocked, and GIL-free (callers invoke via ctypes on raw buffers).
 //

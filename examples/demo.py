@@ -37,7 +37,9 @@ def main(outdir=None):
     from pyspectrogram_tpu.ops.filters import filter_signal, save_wav
     from pyspectrogram_tpu.runtime import ProcessorCallbacks, SpectrogramProcessor
     from pyspectrogram_tpu.utils import SpectrogramConfig
+    from pyspectrogram_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     drf = out / "capture"
     print(f"[1/5] writing synthetic 2-tone capture -> {drf}")
     write_capture(drf, channel="demo", kind="tone", n_samples=1 << 20,

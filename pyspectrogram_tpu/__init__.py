@@ -1,8 +1,8 @@
-"""pyspectrogram_tpu — TPU-native PSD/STI spectrogram framework.
+"""pyspectrogram_tpu — JAX PSD/STI spectrogram framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 jswoboda/PySpectrogram (a PyQt5 Digital RF spectrogram viewer): Digital RF
-HDF5 ingest, fused STFT/PSD/STI compute on TPU, streaming, display
+HDF5 ingest, STFT/PSD/STI compute on the GPU, streaming, display
 preparation, filtering/reconstruction, and thin CLI/GUI clients over one
 array-in/array-out public API.
 """

@@ -438,8 +438,11 @@ def _add_common(p):
     p.add_argument("--precision",
                    choices=["exact", "balanced", "display"],
                    default="exact",
-                   help="DFT numerics: exact (~1e-5 dB), balanced "
-                        "(~7e-4 dB, faster), display (~0.12 dB, fastest)")
+                   help="DFT numerics of the distributed-FFT mesh tier "
+                        "(parallel.big_sti): exact runs float32 FFT "
+                        "stages; balanced and display run GEMM-DFT "
+                        "stages, which on the GPU use TF32 matmuls. Every "
+                        "other path is exact float32 whatever this says")
     p.add_argument("--window", default="kaiser",
                    choices=["kaiser", "hann", "hamming", "blackman", "boxcar"])
     p.add_argument("--kaiser-beta", type=float, default=1.7)
@@ -450,8 +453,11 @@ def _add_common(p):
 
 
 def main(argv=None) -> int:
+    from pyspectrogram_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="pstpu",
-                                 description="TPU-native Digital RF spectrograms")
+                                 description="Digital RF spectrograms on JAX")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("info", help="describe a Digital RF dataset")

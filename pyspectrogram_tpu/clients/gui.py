@@ -115,7 +115,7 @@ class _Bridge(QtCore.QObject):
 class _SaveBridge(QtCore.QObject):
     """Completion signal for the save worker thread (the artifact writes
     — and, in tile mode, the full-resolution recompute with its possible
-    20-80 s remote compile — must not block the Qt event loop)."""
+    compile of a new shape — must not block the Qt event loop)."""
 
     done = pyqtSignal(object)  # Exception | None
 
@@ -717,7 +717,7 @@ class MainWindow(QtWidgets.QMainWindow):
         nsub = p.sxx_med_dbfs.shape[1]
         # clamp against the RESULT's subchannel count: a channel switch
         # repopulates the sub combo before the new channel's first
-        # Iterated lands (a 20-80 s window during a remote recompile),
+        # Iterated lands (a window as long as a new shape's compile),
         # and indexing the stale result with the new combo's index would
         # raise out of the Qt slot
         sub = min(st.subchan, nsub - 1)
@@ -801,8 +801,8 @@ class MainWindow(QtWidgets.QMainWindow):
         if not names:
             return
         # capture everything on the GUI thread; the writes — and in tile
-        # mode the full-resolution recompute, which can include a 20-80 s
-        # remote compile — run on a worker so the event loop stays live.
+        # mode the full-resolution recompute, which can include a new
+        # shape's compile — run on a worker so the event loop stays live.
         # Progress state = disabled button with "Saving…" (no wait
         # cursor: the loop keeps serving redraws/menus meanwhile).
         subset = st.save_subset.isChecked()
@@ -820,7 +820,7 @@ class MainWindow(QtWidgets.QMainWindow):
                 if processor is not None:
                     # is_running flips False at stop time, but the worker
                     # loop may still be finishing an in-flight compute
-                    # (a remote compile holds an iteration 20-80 s);
+                    # (a new shape's compile holds an iteration);
                     # wait it out HERE — off the GUI thread — so the
                     # tile-mode recompute below never runs concurrently
                     # with it
@@ -914,13 +914,16 @@ class MainWindow(QtWidgets.QMainWindow):
         for st in self.states.values():
             if st.processor and st.processor.is_running:
                 st.processor.abort()
-        # signal-only: an in-flight cycle may hold a 20-80 s remote
-        # compile and the close must not freeze on it (daemon thread)
+        # signal-only: an in-flight cycle may hold a compile and the
+        # close must not freeze on it (daemon thread)
         self.scheduler.stop(wait=False)
         event.accept()
 
 
 def main() -> int:  # pragma: no cover
+    from pyspectrogram_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     require_qt()
     app = QtWidgets.QApplication(sys.argv)
     win = MainWindow()

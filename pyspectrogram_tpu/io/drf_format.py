@@ -16,6 +16,8 @@ interchangeable with the upstream tooling:
   pairs marking the start of each contiguous run.
 * Complex data is stored as an HDF5 compound type with fields 'r' and 'i'
   (h5py's native complex mapping uses the same field names).
+
+The HDF5 files themselves are read and written by ``io.h5lite``.
 """
 
 from __future__ import annotations
@@ -115,8 +117,9 @@ def storage_dtype_of(props: "ChannelProperties") -> np.dtype:
 
 
 def memory_dtype_of(props: "ChannelProperties") -> np.dtype:
-    """In-memory dtype h5py yields for this channel's data: float compound
-    {r,i} comes back as native complex; integer compound stays structured."""
+    """In-memory dtype a read yields for this channel's data: float
+    compound {r,i} comes back as native complex; integer compound stays
+    structured (io.h5lite.memory_dtype, h5py's convention)."""
     if props.is_complex and props.h5_class == H5T_FLOAT:
         return np.dtype(f"c{2 * props.h5_size}")
     return storage_dtype_of(props)
@@ -199,24 +202,22 @@ class ChannelProperties:
 
 
 def write_properties(path: Path, props: ChannelProperties) -> None:
-    import h5py
+    from pyspectrogram_tpu.io import h5lite
 
     path.parent.mkdir(parents=True, exist_ok=True)
-    with h5py.File(path, "w") as f:
-        for k, v in props.as_dict().items():
-            if isinstance(v, bool):
-                v = int(v)
-            f.attrs[k] = v
-        f.attrs["digital_rf_time_description"] = (
-            "All times in absolute samples since the Unix epoch at the "
-            "channel's rational sample rate (numerator/denominator Hz)."
-        )
+    attrs = {k: int(v) if isinstance(v, bool) else v
+             for k, v in props.as_dict().items()}
+    attrs["digital_rf_time_description"] = (
+        "All times in absolute samples since the Unix epoch at the "
+        "channel's rational sample rate (numerator/denominator Hz)."
+    )
+    h5lite.create(path, attrs=attrs)
 
 
 def read_properties(path: Path) -> ChannelProperties:
-    import h5py
+    from pyspectrogram_tpu.io import h5lite
 
-    with h5py.File(path, "r") as f:
+    with h5lite.open_file(path) as f:
         a = f.attrs
 
         def geti(key):

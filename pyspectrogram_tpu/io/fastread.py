@@ -2,11 +2,12 @@
 
 The reference's IO hot path is ntime sequential ``read_vector`` calls per
 STI refresh through libdigital_rf (reference: drfProc.py:161-166) — and
-even this package's coalesced h5py path serializes every byte through
-h5py's global API lock, so reader threads cannot scale it.
+a per-file HDF5 read loop (``io.h5lite`` or h5py) serializes every byte
+through Python, so reader threads cannot scale it.
 
-This module sidesteps the lock for the bulk data: h5py is only needed
-ONCE per file to probe metadata — the ``rf_data`` extent map (one byte
+This module reads the bulk data without a library in the loop: the HDF5
+metadata is parsed ONCE per file (``io.h5lite``) to probe the
+``rf_data`` extent map (one byte
 offset for a contiguous dataset; the per-chunk byte offsets for an
 uncompressed full-row-width chunked dataset, which is what this package's
 writer produces), the row count/dtype, and the ``rf_data_index`` block
@@ -14,8 +15,8 @@ table (a few KB). After that, sample rows are plain byte ranges, read
 directly into the destination buffer with ``os.preadv`` from a thread
 pool: no HDF5 library in the loop, no GIL, no intermediate copies. Files
 the probe cannot map (compressed/filtered, subchannel-split chunks,
-non-native byte order) fail it and the caller falls back to the h5py
-path, so results are always identical.
+non-native byte order) fail it and the caller falls back to the
+per-file path, so results are always identical.
 
 Storage dtypes and memory dtypes are byte-identical here (complex64 IS
 the {r: f4, i: f4} compound; int16 compounds stay structured), so reading
@@ -51,7 +52,7 @@ MAPS_CAP = 8192
 
 @dataclasses.dataclass(frozen=True)
 class _FileMap:
-    """Everything needed to read a data file without h5py.
+    """Everything needed to read a data file without an HDF5 library.
 
     The extent map is (chunk_rows, chunk_offsets): a contiguous dataset is
     one implicit chunk of all rows; a full-row-width uncompressed chunked
@@ -69,11 +70,11 @@ class _FileMap:
 
 
 class FastSpanReader:
-    """Reads dense sample spans with pooled preadv; h5py only for probing.
+    """Reads dense sample spans with pooled preadv after one metadata probe.
 
     One instance per reader object; thread-safe. ``read_into`` returns
     False (without touching ``out``) when any overlapping file cannot be
-    mapped, so callers can fall back to the h5py path.
+    mapped, so callers can fall back to the per-file path.
     """
 
     def __init__(self, workers: Optional[int] = None):
@@ -92,61 +93,21 @@ class FastSpanReader:
             fm = self._maps.get(path)
             if fm is not None and fm.mtime_ns == st.st_mtime_ns:
                 return fm
-        import h5py
+        from pyspectrogram_tpu.io import h5lite
 
         try:
-            with h5py.File(path, "r") as f:
+            with h5lite.File(path) as f:
                 ds = f["rf_data"]
-                if ds.compression is not None or ds.compression_opts:
-                    return None
-                if ds.shuffle or ds.scaleoffset is not None or ds.fletcher32:
-                    # size-preserving filters (shuffle especially) pass the
-                    # chunk-size check below but permute the raw bytes —
-                    # a preadv read would return garbage marked valid
-                    return None
-                if ds.dtype.byteorder not in ("<", "=", "|"):
-                    return None  # raw-byte reads assume native LE
-                if ds.dtype.names is not None and any(
-                    f[0].byteorder not in ("<", "=", "|")
-                    for f in ds.dtype.fields.values()
-                ):
-                    # compound dtypes report '|' at the top level even when
-                    # their fields are big-endian; a raw read would return
-                    # byte-swapped samples silently
-                    return None
-                nrows = int(ds.shape[0])
-                row_bytes = int(ds.dtype.itemsize) * int(ds.shape[1])
-                if ds.chunks is None:
-                    offset = ds.id.get_offset()
-                    if offset is None:
-                        return None
-                    chunk_rows = max(nrows, 1)
-                    chunk_offsets = np.asarray([offset], np.int64)
-                else:
-                    # only full-row-width chunks map to row-contiguous
-                    # byte ranges (this package's writer guarantees that;
-                    # (N, 1) subchannel-split chunks do not)
-                    if ds.chunks[1] != ds.shape[1]:
-                        return None
-                    chunk_rows = int(ds.chunks[0])
-                    nchunks = -(-nrows // chunk_rows) if nrows else 0
-                    chunk_offsets = np.full(nchunks, -1, np.int64)
-                    for k in range(ds.id.get_num_chunks()):
-                        info = ds.id.get_chunk_info(k)
-                        if info.filter_mask:
-                            return None
-                        ci = info.chunk_offset[0] // chunk_rows
-                        # unfiltered chunks are allocated raw full-size
-                        if info.size != chunk_rows * row_bytes:
-                            return None
-                        chunk_offsets[ci] = info.byte_offset
-                index = f["rf_data_index"][...].astype(np.int64)
+                # filtered (compressed, shuffled) or subchannel-split
+                # chunks and big-endian fields raise Unsupported here:
+                # raw preadv would return garbage marked valid
+                chunk_rows, chunk_offsets = ds.extents()
                 fm = _FileMap(
-                    nrows=nrows,
-                    row_bytes=row_bytes,
+                    nrows=int(ds.shape[0]),
+                    row_bytes=ds.row_bytes,
                     chunk_rows=chunk_rows,
                     chunk_offsets=chunk_offsets,
-                    index=index,
+                    index=f["rf_data_index"][...].astype(np.int64),
                     mtime_ns=st.st_mtime_ns,
                 )
         except Exception:
@@ -173,7 +134,7 @@ class FastSpanReader:
         preadv and only the gap complement is zeroed — for a gapless
         multi-GB read that skips a full page-faulting memset. Returns
         False if any overlapping file cannot be fast-mapped; the caller
-        must then use the h5py path. ``mask`` (n,) bool is set True where
+        must then use the per-file path. ``mask`` (n,) bool is set True where
         data exists.
 
         On a False return ``out``/``mask`` may have been PARTIALLY
@@ -278,7 +239,7 @@ class FastSpanReader:
             # submit + drain EVERY future before returning: Executor.map's
             # exception cleanup cancels only not-yet-started jobs, and an
             # in-flight straggler writing into `out` after a False return
-            # would race the caller's h5py fallback refilling the same
+            # would race the caller's per-file fallback refilling the same
             # buffer — silent corruption marked valid by the rebuilt mask
             futs = [pool.submit(run, j) for j in split]
             err: Optional[BaseException] = None
@@ -293,9 +254,9 @@ class FastSpanReader:
         except Exception:
             # runtime read failure (file truncated/rewritten by a live
             # writer between probe and read): drop the stale maps and let
-            # the caller take the h5py path, which re-reads fresh state.
+            # the caller take the per-file path, which re-reads fresh state.
             # Deliberately broad — the fast path is opportunistic and the
-            # h5py fallback is the ground truth for ANY failure mode here
+            # per-file fallback is the ground truth for ANY failure mode here
             with self._lock:
                 self._maps.clear()
             return False

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from pyspectrogram_tpu.io import drf_format as fmt
+from pyspectrogram_tpu.io import h5lite
 from pyspectrogram_tpu.utils.errors import (
     ChannelNotFoundError,
     FormatError,
@@ -37,7 +38,8 @@ class DigitalRFReader:
     """Format-level reader over a Digital RF top-level directory.
 
     ``io_workers`` sizes the pooled GIL-free bulk-read path
-    (io.fastread); 0 disables it and every read goes through h5py.
+    (io.fastread); 0 disables it and every read goes through
+    ``io.h5lite.open_file`` (h5py only for files outside its subset).
     """
 
     def __init__(self, top_dir: Union[str, Path],
@@ -84,8 +86,6 @@ class DigitalRFReader:
         live path calls this every refresh tick (bnds_update, reference:
         drfProc.py:169-179); a full listing would make each tick
         O(capture length) for multi-hour captures."""
-        import h5py
-
         self._channel_props(channel)  # ChannelNotFoundError on unknowns
         subs = fmt.list_subdirs(self.top_dir / channel)
         # A live writer creates a file before its first index row lands
@@ -95,7 +95,7 @@ class DigitalRFReader:
         first = last = None
         for sub in subs:
             for _, path in fmt.subdir_data_files(sub):
-                with h5py.File(path, "r") as f:
+                with h5lite.open_file(path) as f:
                     idx = f["rf_data_index"]
                     if idx.shape[0]:
                         first = int(idx[0, 0])
@@ -104,7 +104,7 @@ class DigitalRFReader:
                 break
         for sub in reversed(subs):
             for _, path in reversed(fmt.subdir_data_files(sub)):
-                with h5py.File(path, "r") as f:
+                with h5lite.open_file(path) as f:
                     idx = f["rf_data_index"][...]
                     nrows = f["rf_data"].shape[0]
                     if len(idx):
@@ -148,8 +148,6 @@ class DigitalRFReader:
              ) -> "OrderedDict[int, np.ndarray]":
         """Contiguous runs intersecting [start, start+n) as
         {global_start_index: (n, nsub) array} in native memory dtype."""
-        import h5py
-
         props = self._channel_props(channel)
         start = int(start_sample)
         end = start + int(n_samples)
@@ -158,7 +156,7 @@ class DigitalRFReader:
         for _, path in fmt.files_overlapping(
             props, self.top_dir / channel, start, end
         ):
-            with h5py.File(path, "r") as f:
+            with h5lite.open_file(path) as f:
                 ds = f["rf_data"]
                 idx = f["rf_data_index"][...].astype(np.int64)
                 nrows = ds.shape[0]
@@ -210,12 +208,10 @@ class DigitalRFReader:
             # compound -> native-complex mapping is theirs alone)
             self._mem_dtype[channel] = dt
             return dt
-        import h5py
-
         for sub in fmt.list_subdirs(self.top_dir / channel):
             for _, path in fmt.subdir_data_files(sub):
                 try:
-                    with h5py.File(path, "r") as f:
+                    with h5lite.open_file(path) as f:
                         dt = f["rf_data"].dtype
                 except OSError:
                     continue  # mid-write file: keep probing
@@ -231,8 +227,8 @@ class DigitalRFReader:
 
         With ``return_mask`` also returns a bool (n,) validity mask.
         Large spans over unchunked files go through the pooled GIL-free
-        byte-range path (io.fastread); anything else through h5py —
-        results are identical.
+        byte-range path (io.fastread); anything else through
+        ``io.h5lite.open_file`` — results are identical.
         """
         props = self._channel_props(channel)
         n = int(n_samples)

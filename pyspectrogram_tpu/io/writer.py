@@ -15,7 +15,11 @@ from typing import Optional, Union
 import numpy as np
 
 from pyspectrogram_tpu.io import drf_format as fmt
+from pyspectrogram_tpu.io import h5lite
 from pyspectrogram_tpu.utils.errors import FormatError
+
+#: rows per rf_data_index chunk (one 1 KiB chunk holds 64 runs)
+INDEX_CHUNK_ROWS = 64
 
 
 class DigitalRFWriter:
@@ -37,7 +41,6 @@ class DigitalRFWriter:
         subdir_cadence_secs: int = 3600,
         file_cadence_millisecs: int = 1000,
         num_subchannels: int = 1,
-        compression_level: int = 0,
     ):
         self.top_dir = Path(top_dir)
         self.channel = channel
@@ -58,7 +61,6 @@ class DigitalRFWriter:
         )
         self.next_index = int(start_global_index)
         self._gap_pending = False
-        self.compression_level = compression_level
         chan_dir = self.top_dir / channel
         chan_dir.mkdir(parents=True, exist_ok=True)
         fmt.write_properties(chan_dir / fmt.PROPERTIES_FILENAME, self.props)
@@ -116,55 +118,26 @@ class DigitalRFWriter:
 
     # ------------------------------------------------------------------
     def _append_to_file(self, file_ms: int, global_start: int, disk_rows) -> None:
-        import time
-
-        import h5py
-
         path = self.props.file_path(self.top_dir, self.channel, file_ms)
         path.parent.mkdir(parents=True, exist_ok=True)
-        kw = {}
-        if self.compression_level:
-            kw = dict(compression="gzip", compression_opts=self.compression_level)
-        # a live reader in the same process may hold this file open
-        # read-only for a moment (HDF5 refuses RDWR then) — retry briefly
-        # instead of dropping the block
-        for attempt in range(200):
-            try:
-                f = h5py.File(path, "a")
-                break
-            except OSError:
-                if attempt == 199:
-                    raise
-                time.sleep(0.002)
-        with f:
-            if "rf_data" not in f:
-                # full-row-width chunks: each chunk is then a contiguous
-                # byte range of whole sample rows, which the pooled
-                # GIL-free read path (io.fastread) maps directly; h5py's
-                # auto-chunking would split the subchannel axis instead
-                # chunk row count is bounded (NOT the whole file span):
-                # HDF5 allocates uncompressed chunks full-size, so a file
-                # holding a few rows of a sparse capture would otherwise
-                # occupy chunk_rows*row_bytes on disk regardless of data
-                # written. 8192 rows bounds that overallocation while the
-                # fastread extent map merges byte-adjacent chunks back
-                # into single preadv extents.
-                span = self.props.file_sample_span(file_ms)
-                chunk_rows = max(1, min(int(span[1] - span[0]), 8192))
-                f.create_dataset(
-                    "rf_data",
-                    shape=(0, self.props.num_subchannels),
-                    maxshape=(None, self.props.num_subchannels),
-                    dtype=self.disk_dtype,
-                    chunks=(chunk_rows, self.props.num_subchannels),
-                    **kw,
-                )
-                f.create_dataset(
-                    "rf_data_index",
-                    shape=(0, 2),
-                    maxshape=(None, 2),
-                    dtype=np.uint64,
-                )
+        if not path.exists():
+            # full-row-width chunks: each chunk is then a contiguous byte
+            # range of whole sample rows, which the pooled GIL-free read
+            # path (io.fastread) maps directly. The chunk row count is
+            # bounded (NOT the whole file span): uncompressed chunks are
+            # allocated full-size, so a file holding a few rows of a
+            # sparse capture would otherwise occupy chunk_rows*row_bytes
+            # on disk regardless of data written. 8192 rows bounds that
+            # overallocation while the fastread extent map merges
+            # byte-adjacent chunks back into single preadv extents.
+            span = self.props.file_sample_span(file_ms)
+            chunk_rows = max(1, min(int(span[1] - span[0]), 8192))
+            h5lite.create(path, datasets=(
+                ("rf_data", self.disk_dtype, self.props.num_subchannels,
+                 chunk_rows),
+                ("rf_data_index", np.dtype("<u8"), 2, INDEX_CHUNK_ROWS),
+            ))
+        with h5lite.File(path, "a") as f:
             ds = f["rf_data"]
             idx = f["rf_data_index"]
             row = ds.shape[0]
@@ -175,11 +148,10 @@ class DigitalRFWriter:
                 last_g, last_r = (int(v) for v in idx[-1])
                 if last_g + (row - last_r) == global_start:
                     need_entry = False
-            ds.resize(row + len(disk_rows), axis=0)
-            ds[row:] = disk_rows
+            f.append("rf_data", disk_rows)
             if need_entry:
-                idx.resize(idx.shape[0] + 1, axis=0)
-                idx[-1] = (global_start, row)
+                f.append("rf_data_index",
+                         np.array([[global_start, row]], np.uint64))
 
     def close(self) -> None:  # API symmetry; files are closed per-append
         pass

@@ -1,14 +1,6 @@
 from pyspectrogram_tpu.kernels.gemm_fft import make_gemm_fft, make_plan
-from pyspectrogram_tpu.kernels.sti_pallas import (
-    make_pallas_sti_psd,
-    pallas_supported,
-    to_plane_major,
-)
 
 __all__ = [
     "make_gemm_fft",
-    "make_pallas_sti_psd",
     "make_plan",
-    "pallas_supported",
-    "to_plane_major",
 ]

@@ -1,10 +1,10 @@
 """GEMM-formulated FFT building blocks (host-side planning).
 
-On TPU the MXU (128x128 systolic array) is the throughput engine; an FFT
-expressed as two small dense DFT matmuls + a twiddle (the classic 4-step /
-Cooley-Tukey factorization) turns the transform into MXU work and lets one
-Pallas kernel fuse the whole STI chain around it — the strategy of the
-fused kernel mandated by the north star (BASELINE.json) and SURVEY.md §7.3.
+An FFT expressed as two small dense DFT matmuls + a twiddle (the classic
+4-step / Cooley-Tukey factorization, SURVEY.md §7.3). The DFT and twiddle
+matrices feed the distributed FFT tiers (parallel.dist_fft,
+parallel.big_sti) and the time-major ``fft_impl="gemm"`` path of
+ops.stft.make_sti_fn.
 
 Math: for N = N1*N2, index n = N2*p + q, k = N1*k2 + k1:
     X[N1*k2 + k1] = sum_q ( W_N^(q*k1) * sum_p x[N2*p + q] * W_N1^(p*k1) )
@@ -40,8 +40,7 @@ class FFTPlan(NamedTuple):
 def dft_mat(n: int) -> np.ndarray:
     """Dense n-point DFT matrix W[j, k] = exp(-2pi*i*jk/n), complex128.
     The single shared builder behind every GEMM-FFT plan in the package
-    (this module, kernels.sti_pallas plans, parallel.big_sti local
-    stages, parallel.dist_fft)."""
+    (this module, parallel.big_sti local stages, parallel.dist_fft)."""
     k = np.arange(n)
     return np.exp(-2j * np.pi * np.outer(k, k) / n)
 
@@ -57,12 +56,12 @@ def twiddle_mat(n1: int, n2: int, nfft: int | None = None) -> np.ndarray:
 
 
 def split_factors(nfft: int) -> Tuple[int, int]:
-    """(n1, n2) with n1*n2 == nfft, n1 as close to 128 as possible (MXU
-    width) and both powers of two."""
+    """(n1, n2) with n1*n2 == nfft, n1 = 128 where possible and n2 at
+    most 512 (both powers of two), so both DFT matrices stay small."""
     if nfft & (nfft - 1):
         raise ValueError("GEMM FFT requires power-of-two nfft")
     n1 = min(128, nfft)
-    while nfft // n1 > 512:  # keep n2 manageable for VMEM
+    while nfft // n1 > 512:
         n1 *= 2
     return n1, nfft // n1
 
@@ -85,7 +84,7 @@ def gemm_fft_numpy(xr: np.ndarray, xi: np.ndarray, plan: FFTPlan
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Reference implementation of the factorized FFT for (..., nfft)
     real/imag planes; returns (Xr, Xi) in natural bin order. Used to
-    validate the plan and as the oracle for the Pallas kernel."""
+    validate the plan."""
     n1, n2 = plan.n1, plan.n2
     sh = xr.shape[:-1]
     x2r = xr.reshape(sh + (n1, n2))
@@ -112,9 +111,8 @@ def make_gemm_fft(nfft: int):
 
     plan = make_plan(nfft)
     # keep the constants as HOST numpy: jit bakes them into the HLO at
-    # trace time. Pre-building device arrays here would make lowering
-    # read them BACK from the device (mlir.ir_constant -> ._value), and
-    # complex-dtype transfers are unimplemented on some TPU transports.
+    # trace time; pre-built device arrays would be read back from the
+    # device at lowering (mlir.ir_constant -> ._value)
     d1 = (plan.d1r + 1j * plan.d1i).astype(np.complex64)
     d2 = (plan.d2r + 1j * plan.d2i).astype(np.complex64)
     tw = (plan.twr + 1j * plan.twi).astype(np.complex64)
@@ -123,10 +121,9 @@ def make_gemm_fft(nfft: int):
     def fft(x):
         sh = x.shape[:-1]
         x2 = x.reshape(sh + (n1, n2))
-        # HIGHEST: on TPU the default matmul precision is single-pass
-        # bf16 (~1e-2 relative), which would silently degrade this tier
-        # below its exact contract (the Pallas exact path pins HIGHEST
-        # the same way); on CPU this is a no-op
+        # HIGHEST: the default float32 matmul precision is TF32 on the
+        # GPU (~1e-3 relative), which would silently degrade this tier
+        # below its exact contract; on CPU this is a no-op
         y = jnp.einsum("kp,...pq->...kq", d1, x2,
                        precision=jax.lax.Precision.HIGHEST) * tw
         xm = jnp.matmul(y, d2, precision=jax.lax.Precision.HIGHEST)

@@ -1,18 +1,17 @@
 """Batched STI: many same-shape requests in ONE device program.
 
 The reference runs up to 7 concurrent tabs, each as its own Python thread
-driving its own compute (reference: drfview.py:177-178, 1101-1104) — on a
-TPU that strategy leaves the chip idle between many small dispatches.
+driving its own compute (reference: drfview.py:177-178, 1101-1104) — on
+an accelerator that strategy leaves it idle between many small dispatches.
 Here B requests with identical shape knobs (nfft, nint, ntime, nsub,
-mode, window) fold into a single kernel launch:
+mode, window) fold into a single device launch:
 
 * plane-major request buffers stack to (B, nsub*2, L) and transpose to
   (nsub*2, B*L) — with L = ntime*frame_len, column t' = b*ntime + t of
-  the merged buffer starts at t'*frame_len, so the CONTIGUOUS fused
-  kernel consumes all B requests as one (B*ntime)-column STI with no
-  gather and no kernel changes;
+  the merged buffer starts at t'*frame_len, so the single-request
+  program consumes all B requests as one (B*ntime)-column STI;
 * per-request dBFS references ride a (B, 1, 1, 1) scale vector applied to
-  the linear powers (the kernel runs at ref=1), so requests from
+  the linear powers (the program runs at ref=1), so requests from
   different datasets batch together;
 * medians are per-request: the bisection median vectorizes over the
   leading axis for free.
@@ -160,7 +159,6 @@ def make_batched_sti_fn_mesh(
     window: WindowSpec = ("kaiser", 1.7),
     eps: float = 1e-15,
     fft_impl: str = "auto",
-    precision: str = "exact",
 ):
     """Mesh-DP: B same-shape requests shard over the mesh ``time`` axis in
     ONE device program (SURVEY.md section 2.3 DP row — the multi-chip
@@ -170,7 +168,7 @@ def make_batched_sti_fn_mesh(
     so unlike the single-request tier the SAMPLES shard too — each device
     receives only its own column range (1/ndev of the transfer bytes),
     and plane-row pairs shard over ``chan``. Per-request medians gather
-    linear powers over ICI once and reduce locally, scaled by each
+    linear powers across devices once and reduce locally, scaled by each
     column's own dBFS reference.
 
     Returned ``f(samples_merged, inv_ref_sq)``:
@@ -198,10 +196,8 @@ def make_batched_sti_fn_mesh(
     total_cols = B * ntime
     padded_cols = pad_to_multiple(total_cols, ndev_t)
     local_cols = padded_cols // ndev_t
-    local_sti = make_local_sti(
-        nfft=nfft, nint=nint, mode=mode, window=window, ref=1.0,
-        fft_impl=fft_impl, precision=precision, contiguous=True,
-    )
+    local_sti = make_local_sti(nfft=nfft, nint=nint, mode=mode,
+                               window=window, ref=1.0, fft_impl=fft_impl)
 
     def local(samples_local, inv_ref_sq):
         starts = jnp.arange(local_cols, dtype=jnp.int32) * frame_len
@@ -388,9 +384,7 @@ class BatchedStiPipeline:
                     f"(or 1)")
             fn = make_batched_sti_fn_mesh(
                 self.mesh, nfft=cfg.nfft, nint=cfg.nint, ntime=cfg.ntime,
-                B=B, mode=cfg.mode, window=cfg.window, eps=cfg.eps,
-                precision=cfg.precision,
-            )
+                B=B, mode=cfg.mode, window=cfg.window, eps=cfg.eps)
         inv_refs = jnp.asarray(np.asarray(refs, np.float32))
         if merged_dev is None:
             # side-by-side merged layout (see make_batched_sti_fn_pm) —

@@ -11,8 +11,8 @@ are first-class jitted kernels:
 * inverse STFT (synthesis) — windowed overlap-add with COLA normalization;
 * filter_signal            — STFT -> mask -> ISTFT round trip.
 
-All device work happens on plane-packed real arrays at the boundary
-(complex transfers are not portable across TPU transports).
+All device work happens on plane-packed real arrays at the boundary,
+like every other device buffer in the package.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """NumPy oracle: the reference's PSD/STI math, exactly.
 
-This is the ground truth the TPU kernels are golden-tested against
+This is the ground truth the device programs are golden-tested against
 (SURVEY.md section 4.1). It re-derives — from the math, not the code — what
 ``sti_proc_data`` computes (reference: drfProc.py:364-403):
 

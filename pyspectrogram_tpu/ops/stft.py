@@ -1,4 +1,4 @@
-"""TPU-native STI/PSD compute core (JAX/XLA).
+"""STI/PSD compute core (JAX/XLA).
 
 This replaces the reference's compute chain — per-column reads, Kaiser
 window, scipy periodogram, fftshift, median, dB (reference:
@@ -7,10 +7,10 @@ drfProc.py:300-310, drfProc.py:364-403) — with one jitted device program:
     strided frame gather -> window multiply -> batched complex FFT ->
     |X|^2 -> (Welch average) -> fftshift -> dB ; median PSD across time
 
-Design choices (TPU-first, see SURVEY.md section 7):
+Design choices (see SURVEY.md section 7):
 * Static shapes everywhere: (ntime, nsub, nfft) with the FFT axis last, so
-  XLA tiles the batch over lanes/sublanes and fuses all elementwise work
-  into the FFT's neighborhood.
+  the batched FFT (cuFFT on the GPU) runs over contiguous rows and XLA
+  fuses the elementwise work around it.
 * dBFS normalization (x / full_scale_ref, reference: drfProc.py:129) is
   folded into the power scale (1/(ref^2 * win_sum^2)) — raw integer samples
   can be shipped to HBM unconverted (half the transfer bytes) and
@@ -19,8 +19,9 @@ Design choices (TPU-first, see SURVEY.md section 7):
   reference's verified truncation semantics (scipy periodogram crops to the
   first nfft samples when nint > 1; reference: drfProc.py:387-396);
   "welch" gathers nfft*nint and truly averages nint segment powers.
-* The FFT implementation is pluggable (`fft_impl`): "xla" uses the XLA FFT;
-  "gemm" uses the fused Pallas GEMM-FFT kernel (pyspectrogram_tpu.kernels).
+* The FFT implementation is pluggable (`fft_impl`): "xla" uses the XLA FFT
+  (cuFFT on the GPU); "gemm" the factorized DFT-as-matmul of
+  kernels.gemm_fft.
 """
 
 from __future__ import annotations
@@ -38,10 +39,9 @@ from pyspectrogram_tpu.ops.windows import WindowSpec, get_window
 def pack_complex_host(x: np.ndarray) -> np.ndarray:
     """complex (..., ) host array -> real (..., 2) plane-packed view (zero copy).
 
-    The canonical host->device representation: some TPU transports do not
-    implement complex-dtype transfers at all, packed planes halve transfer
-    bytes for raw integer captures, and a complex64 array's memory IS
-    (float32, float32) pairs — so this is free.
+    The canonical host->device representation: packed planes halve
+    transfer bytes for raw integer captures, and a complex64 array's
+    memory IS (float32, float32) pairs — so this is free.
     """
     x = np.ascontiguousarray(x)
     if x.dtype.kind != "c":
@@ -60,11 +60,10 @@ def gather_frames(samples: jax.Array, starts: jax.Array, frame_len: int) -> jax.
     Equivalent of the reference's per-column HDF5 read loop
     (reference: drfProc.py:159-166), done on-device from a resident buffer.
     """
-    # A generic element gather (take with a 2-D index matrix) is ~200x
-    # slower on TPU than slicing whole rows: view trailing dims as one
-    # minor axis and vmap a dynamic_slice over the frame starts, which XLA
-    # lowers to contiguous HBM block copies (measured 13.5ms -> 0.06ms for
-    # 1024x4096 frames on v5e).
+    # slice whole rows instead of a generic element gather (take with a
+    # 2-D index matrix): view trailing dims as one minor axis and vmap a
+    # dynamic_slice over the frame starts, which XLA lowers to contiguous
+    # block copies
     trailing = samples.shape[1:]
     ncol = int(np.prod(trailing)) if trailing else 1
     flat = samples.reshape(samples.shape[0], ncol)
@@ -131,7 +130,7 @@ def make_sti_fn(
       sxx_med_dbfs: (nsub, nfft)         median-over-time PSD in dBFS;
       (+ sxx, sxx_med linear power when ``return_linear``).
 
-    Output layout is TPU-native (time-major); use
+    Output layout is time-major; use
     :func:`to_reference_layout` for the reference's (nfft, ntime, nsub).
     """
     win64 = get_window(window, nfft)  # float64 on host
@@ -182,19 +181,15 @@ def _float_order_key(x: jax.Array) -> jax.Array:
 
 
 def _kth_smallest_f32(x: jax.Array, k: int) -> jax.Array:
-    """Exact k-th smallest (1-indexed) along axis 0 via 32-step bisection
-    on the float bit pattern — O(32·n) fully-vectorized compare+count, no
-    sort HLO. XLA's TPU sort on a 1M-element (128-long lanes) batch costs
-    ~10 ms; this runs in ~0.12 ms. Exact for all normal floats (platforms
-    that flush denormals may differ below ~1e-38, i.e. under -750 dBFS).
+    """Exact k-th smallest (1-indexed) along axis 0 via 33-step bisection
+    on the float bit pattern — O(33·n) fully-vectorized compare+count, no
+    sort HLO. Exact for all normal floats (platforms that flush denormals
+    may differ below ~1e-38, i.e. under -750 dBFS).
 
-    Negative result (measured, don't re-try): a radix-16 variant — 11
-    passes of 15 thresholds each, hoping XLA would fuse the 15 sibling
-    count-reductions into one buffer read per pass — ran 3.3x SLOWER at
-    65536x128 (XLA materialized each reduction as its own pass over the
-    buffer: ~165 effective reads vs 33). The way to beat 33 HBM reads is
-    to keep the tile resident: see kernels.median_pallas, which this
-    function's callers dispatch to on TPU."""
+    Each step re-reads the buffer: 33 passes over the (n, ..., nfft)
+    power cube unless XLA keeps it in cache. A single-read selection
+    (one bin tile held on chip) is the kernel to write if a trace shows
+    this term."""
     kb = _float_order_key(x)
     lo = jnp.full(x.shape[1:], jnp.int32(-0x7F800001), jnp.int32)
     hi = jnp.full(x.shape[1:], jnp.int32(0x7F800000), jnp.int32)
@@ -250,16 +245,15 @@ def _median_network(p: jax.Array, n: int) -> jax.Array:
     return 0.5 * (rows[n // 2 - 1] + rows[n // 2])
 
 
-def median_over_time(p: jax.Array, ntime_valid: Optional[int] = None,
-                     allow_pallas: bool = True) -> jax.Array:
+def median_over_time(p: jax.Array, ntime_valid: Optional[int] = None
+                     ) -> jax.Array:
     """Median across the leading (time) axis of (ntime, ..., nfft)
     (the reference's per-subchannel median PSD, drfProc.py:401).
 
-    TPU-native selection, two tiers — XLA's sort HLO is the wrong tool on
-    TPU (~10 ms for the typical STI shape):
+    Selection without a sort HLO, two tiers:
 
     * small ntime (<= 32): Batcher odd-even merge network of vectorized
-      min/max over whole rows — exact sort, ~7x less HBM traffic than
+      min/max over whole rows — exact sort, ~7x less memory traffic than
       bisection at n = 8 (this bounds giant-nfft STI steps, where the
       median dominates);
     * larger ntime: 33-step bisection on float bit patterns — pure
@@ -275,21 +269,6 @@ def median_over_time(p: jax.Array, ntime_valid: Optional[int] = None,
     p = p[:n]
     if n <= MEDIAN_NETWORK_MAX_N:
         return _median_network(p, n)
-    if allow_pallas and p.dtype == jnp.float32 \
-            and jax.default_backend() == "tpu":
-        # VMEM-resident kernel: the full 33-step bisection on ONE read of
-        # the buffer instead of 33 (kernels.median_pallas; this is what
-        # bounds big-nfft STI steps at ntime > 32). Callers jitting over
-        # a MESH-SHARDED operand outside shard_map must pass
-        # allow_pallas=False — GSPMD cannot partition the custom call and
-        # would replicate the whole buffer onto every device (the
-        # shard_map paths in parallel.sharded / models.batch are fine:
-        # there the kernel sees the per-device shard).
-        from pyspectrogram_tpu.kernels import median_pallas
-
-        m = int(np.prod(p.shape[1:-1], dtype=np.int64)) if p.ndim > 2 else 1
-        if median_pallas.median_pallas_supported(n, m, p.shape[-1]):
-            return median_pallas.median_over_time_pallas(p)
     if p.dtype != jnp.float32:
         q = jnp.moveaxis(p, 0, -1)
         s = jnp.sort(q, axis=-1)
@@ -369,6 +348,15 @@ def to_dbfs(x: jax.Array, eps: float = 1e-15) -> jax.Array:
     return 10.0 * jnp.log10(x + jnp.asarray(eps, x.dtype))
 
 
+def check_fft_impl(fft_impl: str) -> None:
+    """The plane-major programs run one FFT path, the XLA one; "auto"
+    names it too. Anything else is an error, never a silent fallback."""
+    if fft_impl not in ("auto", "xla"):
+        raise ValueError(
+            f"unknown fft_impl {fft_impl!r}: the plane-major STI runs the "
+            "XLA FFT ('auto' or 'xla')")
+
+
 def make_xla_psd(
     *,
     nfft: int,
@@ -379,9 +367,9 @@ def make_xla_psd(
 ):
     """The gather+Welch XLA step body: plane-major samples + frame starts
     -> fftshifted LINEAR power (ntime, nsub, nfft). ONE implementation
-    behind the single-chip program's XLA branch (_make_sti_fn_pm), every
-    shard_map tier's fallback (parallel.sharded.make_local_sti) and the
-    streaming core — a scaling or dtype fix lands once for all of them."""
+    behind the single-chip program (_make_sti_fn_pm), every shard_map
+    tier's body (parallel.sharded.make_local_sti) and the streaming core —
+    a scaling or dtype fix lands once for all of them."""
     win64 = get_window(window, nfft)
     inv_scale = 1.0 / (float(win64.sum()) ** 2 * float(ref) ** 2)
     win = win64.astype(np.float32)
@@ -424,26 +412,32 @@ def make_sti_fn_pm(
 ):
     """Plane-major STI factory — the production device entry point.
 
+    ``contiguous`` (column t's frame starts at t*nfft*nint) and
+    ``precision`` are accepted for API and checkpoint compatibility; the
+    program is the same exact-float32 XLA body whatever they say
+    (``precision`` selects GEMM tiers only in parallel.big_sti).
+
     With ``tile`` set, the COMPILED program keys on the tile's crop plan
     only (``TileSpec.crop_key``): the color range rides in as a runtime
     (2,) operand, so specs differing only in cmin/cmax share one device
-    program (a color-range tweak in a live view must not trigger a
-    20-80 s remote recompile). The returned fn optionally takes that
+    program (a color-range tweak in a live view must not recompile).
+    The returned fn optionally takes that
     operand: ``f(samples_pm, starts, qparams=None)`` with qparams from
     ``TileSpec.qparams`` (defaults to the factory tile's own range).
     """
+    # contiguous and precision do not change the compiled program (see
+    # _make_sti_fn_pm): they stay out of its cache key
+    del contiguous, precision
     if tile is None:
         return _make_sti_fn_pm(
             nfft=nfft, nint=nint, mode=mode, window=window, ref=ref,
             eps=eps, fft_impl=fft_impl, return_linear=return_linear,
-            return_minmax=return_minmax, contiguous=contiguous,
-            precision=precision, tile=None,
+            return_minmax=return_minmax, tile=None,
         )
     inner = _make_sti_fn_pm(
         nfft=nfft, nint=nint, mode=mode, window=window, ref=ref,
         eps=eps, fft_impl=fft_impl, return_linear=return_linear,
-        return_minmax=return_minmax, contiguous=contiguous,
-        precision=precision, tile=tile.crop_key(),
+        return_minmax=return_minmax, tile=tile.crop_key(),
     )
     default_qp = tile.qparams
 
@@ -467,25 +461,17 @@ def _make_sti_fn_pm(
     fft_impl: str = "auto",
     return_linear: bool = False,
     return_minmax: bool = False,
-    contiguous: bool = False,
-    precision: str = "exact",
     tile=None,
 ):
     """The compiled-program factory behind :func:`make_sti_fn_pm`.
 
     ``f(samples_pm, starts)`` with samples_pm (nsub*2, nsamp) float32
-    (row 2s = subchannel s real plane, row 2s+1 = imag plane; see
-    kernels.sti_pallas) and starts (ntime,) int32. Output layout matches
+    (row 2s = subchannel s real plane, row 2s+1 = imag plane) or raw
+    integer planes, and starts (ntime,) int32. Output layout matches
     :func:`make_sti_fn`.
 
-    fft_impl: "pallas" (fused kernel), "xla", or "auto" — auto uses the
-    fused Pallas kernel when the config supports it and a TPU is the
-    default backend, else the XLA path.
-
-    ``contiguous=True`` declares that column t's frame starts at
-    t*nfft*nint in the buffer (true for every buffer the pipeline's frame
-    assembly produces) — the pallas path then slices the buffer directly
-    with no gather pass at all.
+    ``fft_impl``: "auto" or "xla" — both the plain XLA body
+    (:func:`make_xla_psd`, cuFFT on the GPU); anything else raises.
 
     ``tile`` (a display.TileSpec) swaps ``out["sxx_dbfs"]`` for
     ``out["tile"]``: the display epilogue — frequency-window crop, fscale
@@ -495,53 +481,16 @@ def _make_sti_fn_pm(
     display client reads back only the uint8 tile (same contract as the
     sharded tier, parallel.sharded).
     """
-    from pyspectrogram_tpu.kernels import sti_pallas
-
-    if fft_impl not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown fft_impl {fft_impl!r}")
-
+    check_fft_impl(fft_impl)
     xla_psd = make_xla_psd(nfft=nfft, nint=nint, mode=mode, window=window,
                            ref=ref)
-
-    def pick_impl(nsub: int) -> str:
-        # auto re-evaluates with the ACTUAL nsub from the traced input
-        # shape — the per-column VMEM block scales with nsub, so a config
-        # that is profitable at nsub=1 can exceed the kernel's block budget
-        # at higher subchannel counts; auto falls back instead of raising
-        # (fft_impl="pallas" still raises: it is an explicit ask). ONE
-        # policy shared with every shard_map tier's per-shard body
-        # (sti_pallas.pick_impl), incl. the per-plane-pair launch split.
-        return sti_pallas.pick_impl(nfft, nint, nsub, mode, precision,
-                                    contiguous, fft_impl)
 
     @jax.jit
     def sti_fn(samples_pm: jax.Array, starts: jax.Array,
                qparams=None) -> dict:
-        nsub = samples_pm.shape[0] // 2
-        impl = pick_impl(nsub)
-        use_pallas = impl != "xla"
-        if use_pallas:
-            kernel_psd = sti_pallas.make_pallas_sti_psd(
-                nfft=nfft, nint=nint, mode=mode, window=window, ref=ref,
-                interpret=jax.default_backend() != "tpu",
-                contiguous=contiguous, precision=precision,
-            )
-            if impl == "per-sub":
-                def psd_fn(samples_pm, starts):
-                    return jnp.concatenate(
-                        [kernel_psd(samples_pm[2 * s : 2 * s + 2], starts)
-                         for s in range(nsub)], axis=1)
-            else:
-                psd_fn = kernel_psd
-        else:
-            psd_fn = xla_psd
-        if samples_pm.dtype != jnp.float32 and not (use_pallas and contiguous):
-            # raw integer planes ship over PCIe at half the bytes; the
-            # gathered/XLA paths widen once on device (normalization rides
-            # the power scale), the contiguous pallas kernel widens per
-            # VMEM block with no extra HBM pass at all
-            samples_pm = samples_pm.astype(jnp.float32)
-        p = psd_fn(samples_pm, starts)            # (ntime, nsub, nfft) linear
+        # raw integer planes ship at half the bytes and widen once on
+        # device (normalization rides the power scale)
+        p = xla_psd(samples_pm.astype(jnp.float32), starts)
         p_med = median_over_time(p)
         out = {"sxx_med_dbfs": to_dbfs(p_med, eps)}
         if tile is not None:
@@ -565,6 +514,15 @@ def _make_sti_fn_pm(
         return out
 
     return sti_fn
+
+
+def to_plane_major(packed: np.ndarray) -> np.ndarray:
+    """(nsamp, nsub, 2) time-major packed -> (nsub*2, nsamp) plane-major
+    float32 (host-side; one transpose)."""
+    nsamp, nsub, _ = packed.shape
+    return np.ascontiguousarray(
+        np.moveaxis(packed.astype(np.float32), 0, -1).reshape(nsub * 2, nsamp)
+    )
 
 
 def to_reference_layout(sxx: np.ndarray) -> np.ndarray:

@@ -1,26 +1,27 @@
 """STI for giant FFTs: the transform itself sharded over the mesh.
 
-For nfft beyond one core's VMEM budget (the reference allows up to 2^20,
-reference: drfview.py:475), the per-column FFT runs as the distributed
+For the reference's largest transforms (up to 2^20,
+reference: drfview.py:475), the per-column FFT can run as the distributed
 4-step algorithm (see parallel.dist_fft): local DFT stage, twiddle, one
-ICI all-to-all transpose, local DFT stage — SURVEY.md section 5's
+all-to-all transpose, local DFT stage — SURVEY.md section 5's
 "multi-device 4-step FFT" scaling tier. The rest of the STI chain
 (window, |X|^2, Welch average, fftshift, median, dB) is elementwise over
 the sharded frequency axis, so the all-to-all per segment is the only
-collective; the time median needs none (time is unsharded).
+collective; the time median needs none (time is unsharded). The pipeline
+takes this tier only where column sharding cannot place a request
+(models.sti.StiPipeline._use_bigfft).
 
-The local DFT stages are tier-dependent, each choice MEASURED on v5e
-(single-device mesh, nfft=2^17, ntime=32, 60 amortized iterations):
+The local DFT stages depend on ``precision``:
 
-* "exact"    — XLA FFT HLO stages (3.54 GS/s). A GEMM-DFT stage at
-               HIGHEST precision (6 bf16 passes x Gauss's 3 products)
-               measured 2.37 GS/s: the DFT matmul's ~(n1+n2)/log2(nfft)
-               ~ 45x MAC overhead over FFT is not paid back at 18
-               passes/product — recorded negative result.
-* "balanced" — GEMM-DFT stages (kernels.gemm_fft strategy: 3 real GEMMs
-               via Gauss, host-split hi/lo bf16 constants, 3 single
-               passes per product): 4.42 GS/s, 1.25x the FFT stages.
-* "display"  — GEMM-DFT single-pass bf16: 7.19 GS/s, 2.0x.
+* "exact"    — XLA FFT stages (cuFFT on the GPU), float32 throughout.
+* "balanced" — GEMM-DFT stages: 3 real GEMMs via Gauss's identity with
+               host-split hi/lo bf16 constants, 3 single-precision-pass
+               products each.
+* "display"  — GEMM-DFT stages, one pass per product.
+
+The GEMM tiers run at ``Precision.DEFAULT``, which is TF32 for float32
+operands on the GPU; they are the only place the precision knob changes
+numerics there.
 
 Layout: a frame x reshapes to x2[p, q] = x[p*n2 + q] with the q axis
 explicit and SHARDED (each device holds all p for its q-slice, which is
@@ -35,7 +36,7 @@ its own plot bins out of its k1-slice inside the shard_map, all-gathers
 only those (~plot_n floats — never the (ntime, nsub, nfft) cube),
 reassembles plot order with a static take, quantizes (color range as a
 runtime operand) and returns a uint8 (ntime, nsub, plot_n) tile — the
-float spectra never leave HBM and never replicate across devices,
+float spectra never leave device memory and never replicate across devices,
 exactly like the single-device display path (north star, BASELINE.md).
 """
 
@@ -82,28 +83,32 @@ def _dft_mats(n: int):
     return d.real.astype(np.float32), d.imag.astype(np.float32)
 
 
+def _split_bf16(m: np.ndarray) -> np.ndarray:
+    """Host-side error-feedback split D = hi + lo with hi = bf16(D), for
+    the balanced tier: three single-pass bf16 products approximate one
+    float32 product."""
+    hi = m.astype(np.float32).astype(jnp.bfloat16).astype(np.float32)
+    return np.stack([hi, m - hi]).astype(np.float32)
+
+
 def _triple(dr: np.ndarray, di: np.ndarray, precision: str):
     """Gauss-identity constant triple (dr, di, dr+di), hi/lo-split for
-    the balanced tier (kernels.sti_pallas._split_bf16)."""
+    the balanced tier (_split_bf16)."""
     mats = (dr, di, dr + di)
     if precision == "balanced":
-        from pyspectrogram_tpu.kernels.sti_pallas import _split_bf16
-
         return tuple(_split_bf16(m) for m in mats)
     return mats
 
 
 def _tier_cdot(precision: str, eq: str):
     """Complex contraction ``einsum(eq, D, x)`` on real planes with
-    Gauss's 3-multiplication identity, tiered like the Pallas kernel
-    (kernels.sti_pallas._complex_gemm_ops):
+    Gauss's 3-multiplication identity:
         k1 = (Dr+Di)*xr, k2 = Dr*(xi-xr), k3 = Di*(xr+xi)
         real = k1 - k3, imag = k1 + k2
     Returns f(d3, xr, xi) -> (yr, yi)."""
     # DEFAULT precision only: call sites are gated by use_gemm =
-    # precision != "exact" (the exact-GEMM tier was measured slower than
-    # the XLA FFT here and removed — see the module docstring's negative
-    # result), so an exact/HIGHEST branch would be dead code
+    # precision != "exact" (the exact tier runs XLA FFT stages), so an
+    # exact/HIGHEST branch would be dead code
     es = functools.partial(
         jnp.einsum,
         precision=jax.lax.Precision.DEFAULT,
@@ -135,7 +140,7 @@ def make_bigfft_sti_fn(mesh: Mesh, axis: str, *, tile=None, **kw):
     tile's color range (``TileSpec.crop_key``) BEFORE the compile cache,
     so specs differing only in cmin/cmax hit the same compiled shard_map
     program whether or not the caller passed ``spec.crop_key()`` — a
-    re-clim must never cost a remote recompile (same two-level pattern
+    re-clim must never cost a recompile (same two-level pattern
     as ops.stft.make_sti_fn_pm)."""
     return _make_bigfft_sti_fn(
         mesh, axis, tile=tile.crop_key() if tile is not None else None,
@@ -186,11 +191,11 @@ def _make_bigfft_sti_fn(
     tw = twiddle_mat(n1, n2, nfft)
     twr = tw.real.astype(np.float32)
     twi = tw.imag.astype(np.float32)
-    # tier-dependent local stages (measured A/B in the module docstring):
-    # exact keeps XLA's FFT HLO; balanced/display run GEMM-DFT stages on
-    # the MXU. GEMM constants ride as replicated operands (P()) rather
-    # than baked HLO constants: at 2^20 the triples are ~24 MB and
-    # constants that size bloat the program + its remote-compile time.
+    # tier-dependent local stages (module docstring): exact keeps XLA's
+    # FFT HLO; balanced/display run GEMM-DFT stages. GEMM constants ride
+    # as replicated operands (P()) rather than baked HLO constants: at
+    # 2^20 the triples are ~24 MB and constants that size bloat the
+    # program and its compile time.
     use_gemm = precision != "exact"
     if use_gemm:
         d1_3 = _triple(*_dft_mats(n1), precision)
@@ -255,7 +260,7 @@ def _make_bigfft_sti_fn(
             zi = yr * twi_s + yi * twr_s
             # all-to-all: trade the q shard for a k1 shard — ONE
             # collective for both planes (stacked), keeping the step's
-            # ICI traffic a single transfer
+            # interconnect traffic a single transfer
             z = jnp.stack([zr, zi])       # (2, ntime, nsub, n1, n2/ndev)
             z = z.reshape(2, ntime, nsub, ndev, n1 // ndev, n2 // ndev)
             z = jax.lax.all_to_all(z, axis, split_axis=3, concat_axis=3,

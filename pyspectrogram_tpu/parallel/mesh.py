@@ -10,7 +10,8 @@ Here scaling is expressed over a 2-D ``jax.sharding.Mesh``:
   channel slice; no cross-device math).
 
 Collectives (an all-gather of column shards for the time-median PSD) ride
-ICI via XLA; no host message passing is involved.
+the device interconnect (NVLink between cards) via XLA; no host message
+passing is involved.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def pad_contiguous_block(
     appended zero samples, keeping column t's frame at t*frame_len
     everywhere — so the buffer itself shards over ``time``: each device
     stores and receives only its own span (1/time_axis of the bytes) and
-    the per-shard kernel keeps the gather-free contiguous layout.
+    keeps the contiguous ladder layout.
 
     Returns (samples_padded, starts_padded, original_ntime); padded
     columns are excluded from the median via ntime_valid and dropped on

@@ -12,7 +12,7 @@ Sharding layout (SURVEY.md section 2.3):
 * sxx output:     sharded over (time, chan) — columns never leave their
   device unless the client asks for the assembled array;
 * median PSD:     needs all columns per frequency bin, so the linear powers
-  are all-gathered along ``time`` over ICI and reduced locally
+  are all-gathered along ``time`` and reduced locally
   (replicated over time, sharded over chan).
 """
 
@@ -36,8 +36,8 @@ from pyspectrogram_tpu.parallel.mesh import CHAN_AXIS, TIME_AXIS
 
 #: gathered-median budget: below this many bytes for the FULL gathered
 #: power cube (ntime x nsub_l x nfft f32, replicated per device), the
-#: time median all-gathers once and runs the VMEM-resident kernel (1 HBM
-#: pass); above it, the 33-round psum'd bisection keeps every device at
+#: time median all-gathers once and runs the single-device selection
+#: locally; above it, the 33-round psum'd bisection keeps every device at
 #: its own shard — at the reference's ntime = 1e5 ceiling with
 #: nfft = 4096 the gathered cube is ~1.6 GB per device, which thrashes
 #: or OOMs exactly at the scale the sharded tier exists to serve.
@@ -52,49 +52,20 @@ def make_local_sti(
     window: WindowSpec = ("kaiser", 1.7),
     ref: float = 1.0,
     fft_impl: str = "auto",
-    precision: str = "exact",
-    contiguous: bool = False,
 ):
     """The per-shard STI body shared by every shard_map tier: plane-major
     samples + frame starts -> LINEAR fftshifted power (ntime_l, nsub_l,
-    nfft). Raw integer planes widen here, per shard on device. Dispatch
-    mirrors the single-chip program exactly (sti_pallas.pick_impl — one
-    policy): the fused kernel from the LOCAL nsub, one launch per plane
-    pair where the multi-sub working set overflows VMEM but one
-    subchannel fits, XLA (ops.stft.make_xla_psd) only past that."""
-    from pyspectrogram_tpu.kernels import sti_pallas
-    from pyspectrogram_tpu.ops.stft import make_xla_psd
+    nfft). Raw integer planes widen here, per shard on device; the body
+    is the single-chip program's (ops.stft.make_xla_psd)."""
+    from pyspectrogram_tpu.ops.stft import check_fft_impl, make_xla_psd
 
-    if fft_impl not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown fft_impl {fft_impl!r}")
-
+    check_fft_impl(fft_impl)
     get_window(window, nfft)  # validate the spec eagerly
     xla_psd = make_xla_psd(nfft=nfft, nint=nint, mode=mode, window=window,
                            ref=ref)
 
     def local_sti(samples_pm, starts):
-        nsub_l = samples_pm.shape[0] // 2
-        impl = sti_pallas.pick_impl(nfft, nint, nsub_l, mode, precision,
-                                    contiguous, fft_impl)
-        use_pallas = impl != "xla"
-        if samples_pm.dtype != jnp.float32 and not (use_pallas and contiguous):
-            # raw integer planes ship at half the bytes; the gathered/XLA
-            # shard bodies widen once here, but the contiguous pallas
-            # kernel widens per VMEM block with no extra HBM pass — the
-            # same policy as the single-chip path (ops.stft)
-            samples_pm = samples_pm.astype(jnp.float32)
-        if use_pallas:
-            pallas_psd = sti_pallas.make_pallas_sti_psd(
-                nfft=nfft, nint=nint, mode=mode, window=window, ref=ref,
-                interpret=jax.default_backend() != "tpu",
-                precision=precision, contiguous=contiguous,
-            )
-            if impl == "per-sub":
-                return jnp.concatenate(
-                    [pallas_psd(samples_pm[2 * s : 2 * s + 2], starts)
-                     for s in range(nsub_l)], axis=1)
-            return pallas_psd(samples_pm, starts)
-        return xla_psd(samples_pm, starts)        # (ntime_l, nsub_l, nfft)
+        return xla_psd(samples_pm.astype(jnp.float32), starts)
 
     return local_sti
 
@@ -105,7 +76,7 @@ def make_sharded_sti_fn(mesh: Mesh, *, tile=None, **kw):
     color range (``TileSpec.crop_key``) BEFORE the compile cache, so specs
     differing only in cmin/cmax hit the same compiled program whether or
     not the caller remembered to pass ``spec.crop_key()`` — a re-clim
-    must never cost a 20-80 s remote recompile (same two-level pattern as
+    must never cost a recompile (same two-level pattern as
     ops.stft.make_sti_fn_pm)."""
     return _make_sharded_sti_fn(
         mesh, tile=tile.crop_key() if tile is not None else None, **kw)
@@ -123,7 +94,6 @@ def _make_sharded_sti_fn(
     ref: float = 1.0,
     eps: float = 1e-15,
     fft_impl: str = "auto",
-    precision: str = "exact",
     contiguous: bool = False,
     tile=None,
 ):
@@ -143,9 +113,8 @@ def _make_sharded_sti_fn(
     t*frame_len — what models.sti.assemble_device_block produces, padded
     via mesh.pad_contiguous_block). The sample buffer then shards over
     BOTH mesh axes — each device stores only its own column span instead
-    of a full replica per time-axis row — and each shard runs the
-    gather-free contiguous kernel (the lane-folded wide path at small
-    nfft), with starts rebased to the shard base in-shard. The gathered
+    of a full replica per time-axis row — with starts rebased to the
+    shard base in-shard. The gathered
     default keeps replication because arbitrary starts may read anywhere
     in the buffer (pad_starts' repeated-last-start columns included).
 
@@ -158,10 +127,8 @@ def _make_sharded_sti_fn(
     the return carries ``"tile"`` instead of ``"sxx_dbfs"`` — matching
     the single-chip fused program's contract (ops.stft.make_sti_fn_pm).
     """
-    local_sti = make_local_sti(
-        nfft=nfft, nint=nint, mode=mode, window=window, ref=ref,
-        fft_impl=fft_impl, precision=precision, contiguous=contiguous,
-    )
+    local_sti = make_local_sti(nfft=nfft, nint=nint, mode=mode,
+                               window=window, ref=ref, fft_impl=fft_impl)
 
     def sharded(samples_pm, starts, qparams=None):
         if contiguous:
@@ -173,7 +140,7 @@ def _make_sharded_sti_fn(
         cube = p_local.shape[0] * ndev_t * np.prod(p_local.shape[1:]) * 4
         if cube <= GATHERED_MEDIAN_MAX_BYTES:
             # gather all columns of my channel shard for the time median
-            # (one ICI gather + one VMEM-resident kernel pass)
+            # (one all-gather, then the single-device selection)
             p_all = jax.lax.all_gather(p_local, TIME_AXIS, axis=0,
                                        tiled=True)
             p_med = median_over_time(p_all, ntime_valid)  # (nsub_l, nfft)

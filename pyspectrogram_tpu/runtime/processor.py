@@ -207,8 +207,8 @@ class SpectrogramProcessor:
                         self._last_key, self._last_result = key, result
                 self.latencies_s.append(time.perf_counter() - t0)
                 if self._stop.is_set() and delivered:
-                    # Stop arrived while compute was in flight (a remote
-                    # compile can hold this iteration for 20-80 s) —
+                    # Stop arrived while compute was in flight (a new
+                    # shape's compile can hold this iteration) —
                     # Terminated has already been emitted, so delivering
                     # this stale Iterated would overwrite state the
                     # consumer captured at stop time and race any save

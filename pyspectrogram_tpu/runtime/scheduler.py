@@ -2,10 +2,9 @@
 
 The reference's concurrency story is up to 7 simultaneous tabs, each its
 own worker thread driving its own compute (reference: drfview.py:177-178,
-1101-1104) — on a TPU that is N small dispatches per refresh cycle where
-one batched dispatch would do, and the measured batched tier
-(models.batch) runs the 7-tab pattern 2.7x faster as ONE launch
-(docs/architecture.md). This scheduler makes that tier reachable from the
+1101-1104) — on an accelerator that is N small dispatches per refresh
+cycle where one batched dispatch would do (models.batch runs them as ONE
+launch). This scheduler makes that tier reachable from the
 client that actually has multiple tabs: ONE refresh thread serves every
 registered written-mode processor, and each cycle it
 
@@ -82,7 +81,7 @@ class SharedRefreshScheduler:
     def stop(self, wait: bool = True) -> None:
         """Stop the refresh thread (used by client shutdown); registered
         processors are left as-is. ``wait=False`` only signals: an
-        in-flight cycle may hold a 20-80 s remote compile, and a GUI
+        in-flight cycle may hold a compile, and a GUI
         main thread must not block on it (the thread is a daemon — it
         dies with the process either way)."""
         self._stop_evt.set()

@@ -64,9 +64,10 @@ class SpectrogramConfig:
     #: nint-segment power averaging (the behavior the reference's GUI label
     #: "Number of integrations" implies, reference: drfview.py:482-483).
     mode: str = "welch"
-    #: DFT numerics tier: "exact" (default, ~1e-5 dB vs the f32 FFT),
-    #: "balanced" (~7e-4 dB, ~1.3x faster), "display" (single-pass bf16,
-    #: ~0.12 dB, ~2x faster — waterfall-grade)
+    #: DFT numerics of the distributed-FFT mesh tier (parallel.big_sti):
+    #: "exact" (default) runs float32 FFT stages; "balanced" and "display"
+    #: run GEMM-DFT stages (TF32 matmuls on the GPU). Every other path is
+    #: exact float32 whatever this says; kept in checkpoint signatures.
     precision: str = "exact"
     eps: float = DEFAULT_EPS
     #: streaming mode uses a trailing window (reference: drfProc.py:239-241)

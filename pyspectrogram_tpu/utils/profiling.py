@@ -10,10 +10,11 @@ so the pipeline publishes it.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -91,3 +92,33 @@ def device_trace(log_dir: str) -> Iterator[None]:
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def time_calls(call: Callable, repeats: int) -> Tuple[float, np.ndarray]:
+    """(cold seconds, warm seconds per call): the host clock around
+    ``jax.block_until_ready`` of each call's result — JAX returns before
+    the device finishes, so timing without it measures the enqueue. The
+    first (cold) call includes compilation."""
+    import jax
+
+    t0 = time.perf_counter()
+    jax.block_until_ready(call())
+    cold = time.perf_counter() - t0
+    ts = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        jax.block_until_ready(call())
+        ts.append(time.perf_counter() - t0)
+    return cold, np.asarray(ts)
+
+
+def card_line() -> str:
+    """The GPU's name and power limit as ``nvidia-smi`` reports them — a
+    card below its power limit runs slower, so every timing carries it."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"

@@ -64,20 +64,17 @@ def test_to_freq_order_roundtrip():
 
 
 def test_pipeline_bigfft_tier(tone_capture, monkeypatch):
-    """StiPipeline auto-dispatches to the distributed-FFT tier for giant
-    transforms (threshold lowered + VMEM test forced to fail so the tier
-    runs on the CPU mesh at a testable size)."""
+    """StiPipeline auto-dispatches to the distributed-FFT tier when the
+    subchannel plane pairs cannot be placed over the chan axis (threshold
+    lowered so the tier runs on the CPU mesh at a testable size)."""
     from pyspectrogram_tpu.io.reader import RFDataset
-    from pyspectrogram_tpu.kernels import sti_pallas
     from pyspectrogram_tpu.models.sti import StiPipeline
     from pyspectrogram_tpu.utils.config import SpectrogramConfig
 
     top, meta = tone_capture
     cfg = SpectrogramConfig(nfft=4096, nint=2, ntime=4)
     want = StiPipeline(RFDataset(top), cfg).compute()
-    mesh = make_mesh(time_parallel=8, chan_parallel=1)
-    monkeypatch.setattr(sti_pallas, "pallas_supported",
-                        lambda *a, **k: False)
+    mesh = make_mesh(time_parallel=2, chan_parallel=4)
     pipe = StiPipeline(RFDataset(top), cfg, mesh=mesh,
                        bigfft_threshold=4096)
     assert pipe._use_bigfft(cfg, nsub=1)
@@ -97,30 +94,30 @@ def test_pipeline_bigfft_tier(tone_capture, monkeypatch):
 
 
 def test_pipeline_prefers_column_sharding_when_kernel_fits(tone_capture):
-    """At/above the threshold the dist-FFT tier (one all-to-all per
-    segment) yields to collective-free column sharding whenever the fused
-    kernel's per-shard VMEM test passes (roofline: docs/architecture.md) —
-    and is still chosen when the planes can't divide over chan."""
+    """Column sharding (collective-free per shard) whenever the plane
+    pairs divide over the chan axis, at any nfft; the dist-FFT tier (one
+    all-to-all per segment) only at/above the threshold when they do
+    not; below the threshold never."""
     from pyspectrogram_tpu.io.reader import RFDataset
     from pyspectrogram_tpu.models.sti import StiPipeline
     from pyspectrogram_tpu.utils.config import SpectrogramConfig
 
     top, meta = tone_capture
     mesh = make_mesh(time_parallel=8, chan_parallel=1)
-    cfg = SpectrogramConfig(nfft=1 << 18, nint=1, ntime=4)
+    cfg = SpectrogramConfig(nfft=1 << 20, nint=1, ntime=4)
     pipe = StiPipeline(RFDataset(top), cfg, mesh=mesh)
-    # nsub=1 at 2^18 fits the fused kernel's VMEM budget -> column shard
+    # a 1-wide chan axis places any nsub -> column shard, even at 2^20
     assert not pipe._use_bigfft(cfg, nsub=1)
-    # per-shard working set nfft*(28*nsub+60) > 90 MiB -> dist-FFT
-    assert pipe._use_bigfft(cfg, nsub=16)
+    assert not pipe._use_bigfft(cfg, nsub=16)
     # plane pairs must divide over the chan axis, else column sharding
     # cannot place them and the dist-FFT tier takes the request
     mesh2 = make_mesh(time_parallel=4, chan_parallel=2)
     pipe2 = StiPipeline(RFDataset(top), cfg, mesh=mesh2)
     assert pipe2._use_bigfft(cfg, nsub=3)
+    assert not pipe2._use_bigfft(cfg, nsub=4)
     # below the threshold never dist-FFT
     small = SpectrogramConfig(nfft=4096, nint=1, ntime=4)
-    assert not pipe._use_bigfft(small, nsub=16)
+    assert not pipe2._use_bigfft(small, nsub=3)
 
 
 def test_bigfft_int16_planes_stay_narrow():
@@ -166,11 +163,11 @@ def _frames_from_pm(pm, nfft, nint, nseg, ntime, nsub):
 
 def test_bigfft_precision_tiers(monkeypatch):
     """precision= plumbs through the dist-FFT tier (r3 missing #2a): all
-    three tiers run and agree. Stages are tier-dependent (measured A/B in
-    big_sti's docstring): exact keeps FFT stages, balanced/display run
-    GEMM-DFT stages — so on CPU the tiers differ only by f32 DFT-vs-FFT
-    rounding (flat-spectrum noise: well under 2e-2 dB; the einsum
-    precision flag itself is TPU-only)."""
+    three tiers run and agree. Stages are tier-dependent (big_sti's
+    docstring): exact keeps FFT stages, balanced/display run GEMM-DFT
+    stages — so on CPU the tiers differ only by f32 DFT-vs-FFT rounding
+    (flat-spectrum noise: well under 2e-2 dB; the einsum precision flag
+    changes numerics only on the GPU, where DEFAULT is TF32)."""
     nfft, ntime, nsub, nint = 1 << 12, 3, 1, 1
     rng = np.random.default_rng(7)
     pm = 0.3 * rng.standard_normal((2, ntime * nfft)).astype(np.float32)
@@ -273,20 +270,18 @@ def test_bigfft_tile_mode_collectives_stay_tile_sized():
 
 def test_bigfft_multisub_on_chan_mesh_welch4_odd_ntime(tone_capture,
                                                        monkeypatch):
-    """r3 weak #5: multi-subchannel request through the PIPELINE's bigfft
-    tier on a (time=4, chan=2) mesh, nint=4 welch, ntime=5 (odd — the
-    bigfft tier's time axis is unsharded, so no padding may occur)."""
+    """Multi-subchannel request through the PIPELINE's bigfft tier on a
+    (time=2, chan=4) mesh (2 plane pairs cannot divide over 4), nint=4
+    welch, ntime=5 (odd — the bigfft tier's time axis is unsharded, so
+    no padding may occur)."""
     from pyspectrogram_tpu.io.reader import RFDataset
-    from pyspectrogram_tpu.kernels import sti_pallas
     from pyspectrogram_tpu.models.sti import StiPipeline
     from pyspectrogram_tpu.utils.config import SpectrogramConfig
 
     top, meta = tone_capture  # 2 subchannels
     cfg = SpectrogramConfig(nfft=2048, nint=4, ntime=5, mode="welch")
     want = StiPipeline(RFDataset(top), cfg).compute()
-    mesh = make_mesh(time_parallel=4, chan_parallel=2)
-    monkeypatch.setattr(sti_pallas, "pallas_supported",
-                        lambda *a, **k: False)
+    mesh = make_mesh(time_parallel=2, chan_parallel=4)
     pipe = StiPipeline(RFDataset(top), cfg, mesh=mesh,
                        bigfft_threshold=2048)
     assert pipe._use_bigfft(cfg, nsub=2)
@@ -305,14 +300,11 @@ def test_pipeline_bigfft_tile_mode(tone_capture, monkeypatch):
     spectra (r3 missing #2b end-to-end)."""
     from pyspectrogram_tpu.display.tile import make_tile_spec, tile_from_db
     from pyspectrogram_tpu.io.reader import RFDataset
-    from pyspectrogram_tpu.kernels import sti_pallas
     from pyspectrogram_tpu.models.sti import StiPipeline
     from pyspectrogram_tpu.utils.config import SpectrogramConfig
 
     top, meta = tone_capture
-    mesh = make_mesh(time_parallel=8, chan_parallel=1)
-    monkeypatch.setattr(sti_pallas, "pallas_supported",
-                        lambda *a, **k: False)
+    mesh = make_mesh(time_parallel=2, chan_parallel=4)
     cfg = SpectrogramConfig(nfft=4096, ntime=4)
     pipe_f = StiPipeline(RFDataset(top), cfg, mesh=mesh,
                          bigfft_threshold=4096)

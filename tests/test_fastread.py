@@ -1,14 +1,16 @@
 """io.fastread: pooled GIL-free byte-range reads must be byte-identical to
-the h5py path, fall back on chunked/compressed files, and actually engage
-on large spans."""
+the per-file path, fall back on chunked/compressed files, and actually
+engage on large spans. h5py builds the files the package never writes."""
 
-import h5py
 import numpy as np
+import pytest
 
 from pyspectrogram_tpu.io import drf_format as fmt
 from pyspectrogram_tpu.io.fastread import FastSpanReader
 from pyspectrogram_tpu.io.reader import DigitalRFReader
 from pyspectrogram_tpu.io.synthetic import write_capture
+
+h5py = pytest.importorskip("h5py")
 
 
 def _h5py_only(top):

@@ -1,7 +1,6 @@
-"""Pin the driver entry points (``__graft_entry__``) so they can never
-silently regress: round 1 shipped a ``dryrun_multichip`` that crashed in the
-driver environment (single ambient chip, no virtual mesh) because nothing in
-the test suite invoked it.
+"""Pin the entry points in ``__graft_entry__`` so they can never silently
+regress: ``entry()`` and ``dryrun_multichip`` must compile and run, and a
+multi-device dry run must never hide a missing card behind a CPU mesh.
 """
 
 import os
@@ -32,7 +31,21 @@ def test_dryrun_multichip_inline_8dev():
 
 
 def test_dryrun_multichip_subprocess_path():
-    # The driver environment exposes a single ambient chip; the subprocess
-    # fallback must force its own virtual CPU mesh. Exercise that exact
-    # code path directly (fresh interpreter, env-forced device count).
-    graft._dryrun_subprocess(4)
+    # On the CPU backend a mesh larger than the visible devices is
+    # simulated: dryrun_multichip re-launches under a forced virtual CPU
+    # mesh (fresh interpreter, env-forced device count).
+    assert jax.default_backend() == "cpu" and len(jax.devices()) < 16
+    graft.dryrun_multichip(16)
+
+
+def test_dryrun_multichip_raises_on_gpu_with_too_few_devices(monkeypatch):
+    """On an accelerator the mesh must be real: too few cards is an error,
+    never a quiet re-launch on the CPU."""
+    import pytest
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax, "devices", lambda *a: [object()])
+    monkeypatch.setattr(graft, "_dryrun_subprocess", lambda n: pytest.fail(
+        "fell back to a CPU re-launch"))
+    with pytest.raises(RuntimeError, match="needs 4 gpu devices; 1 visible"):
+        graft.dryrun_multichip(4)

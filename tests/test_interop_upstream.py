@@ -16,14 +16,16 @@ environments where the upstream package exists.
 import re
 from fractions import Fraction
 
-import h5py
 import numpy as np
+import pytest
 
 from pyspectrogram_tpu.io import drf_format as fmt
 from pyspectrogram_tpu.io.reader import DigitalRFReader, RFDataset
 from pyspectrogram_tpu.io.synthetic import write_capture
 
 from upstream_capture import write_upstream_capture
+
+h5py = pytest.importorskip("h5py")
 
 
 def test_reads_upstream_golden_continuous_complex64(tmp_path):

@@ -445,8 +445,8 @@ def test_samples_to_datetime64_overflow_fallback():
 
 def test_writer_retries_transient_reader_lock(tmp_path, monkeypatch):
     """A live reader holding a data file open read-only must not make the
-    writer drop a block — the append retries (found by a TPU soak where a
-    same-process reader/writer collided once in ~600 pushes)."""
+    writer drop a block: the append (io.h5lite, no file lock) lands while
+    an HDF5-library reader holds the file open."""
     import h5py
 
     w = DigitalRFWriter(tmp_path, "rl", np.complex64, 0, 100_000)

@@ -302,7 +302,7 @@ def test_live_ring_wrap_long_run(tmp_path):
 def test_fillup_median_span_rides_a_ladder(tmp_path):
     """While the window FILLS on a young capture, every tick has a new
     total column count — but the device median programs are compiled per
-    static count, and a remote TPU compile is 20-80 s. The engine must
+    static count, and each compile costs seconds. The engine must
     quantize the fill-up median span to a geometric ladder (floor-pow2,
     then exactly W) so the number of compiled refresh programs stays
     O(log W), not O(ticks)."""

@@ -1,4 +1,4 @@
-"""Exactness of the TPU-native (sort-free) median selection."""
+"""Exactness of the sort-free median selection."""
 
 import numpy as np
 import pytest
@@ -61,33 +61,19 @@ def test_network_median_exact_all_small_n():
         got, np.median(x[:7], axis=0).astype(np.float32))
 
 
-def test_pallas_median_kernel_exact():
-    """The VMEM-resident median kernel (kernels.median_pallas; dispatched
-    by median_over_time on TPU at n > 32) must equal numpy bit-for-bit:
-    odd/even n, ties, infs, multi-batch, tile-width splits."""
-    from pyspectrogram_tpu.kernels.median_pallas import (
-        median_over_time_pallas,
-        median_pallas_supported,
-        pick_tile_width,
-    )
-
+@pytest.mark.parametrize("n,shape", [(33, (2, 256)), (100, (1, 128)),
+                                     (128, (2, 512)), (64, (384,)),
+                                     (65, (3, 128))])
+def test_bisection_median_exact_above_network(n, shape):
+    """Above the sorting-network tier (n > 32) the 33-step bisection must
+    equal numpy bit-for-bit: odd/even n, ties, infs, multi-batch."""
     rng = np.random.default_rng(4)
-    # tile-width planner: wide tiles for short n, narrow for tall n
-    assert pick_tile_width(128, 1, 65536) >= 1024
-    assert pick_tile_width(8192, 1, 65536) == 128
-    assert median_pallas_supported(100, 2, 256)
-    assert not median_pallas_supported(100_000, 2, 256)  # XLA path covers it
-
-    for n, shape in [(33, (2, 256)), (100, (1, 128)), (128, (2, 512)),
-                     (64, (384,)), (65, (3, 128))]:
-        for x in (
-            rng.standard_normal((n, *shape)).astype(np.float32),
-            rng.integers(-4, 4, (n, *shape)).astype(np.float32),  # ties
-            np.where(rng.random((n, *shape)) < 0.15, np.float32(np.inf),
-                     rng.standard_normal((n, *shape)).astype(np.float32)),
-        ):
-            got = np.asarray(jax.jit(
-                lambda a: median_over_time_pallas(a, interpret=True)
-            )(jnp.asarray(x)))
-            np.testing.assert_array_equal(
-                got, np.median(x, axis=0).astype(np.float32))
+    for x in (
+        rng.standard_normal((n, *shape)).astype(np.float32),
+        rng.integers(-4, 4, (n, *shape)).astype(np.float32),  # ties
+        np.where(rng.random((n, *shape)) < 0.15, np.float32(np.inf),
+                 rng.standard_normal((n, *shape)).astype(np.float32)),
+    ):
+        got = np.asarray(jax.jit(stft.median_over_time)(jnp.asarray(x)))
+        np.testing.assert_array_equal(
+            got, np.median(x, axis=0).astype(np.float32))

@@ -128,93 +128,11 @@ def test_welch_reduces_variance():
     assert w.std() < p.std() / 2.5  # ~sqrt(16)=4x in expectation
 
 
-@pytest.mark.parametrize("contiguous", [True, False])
-def test_auto_impl_per_sub_big_kernel_when_multi_sub_overflows(
-        monkeypatch, contiguous):
-    """Big transforms whose MULTI-sub working set overflows the kernel's
-    VMEM budget while one subchannel fits must run one pallas launch per
-    plane pair (auto 'per-sub'), not drop to the 5-7x slower XLA FFT
-    (2^20 nsub>=2 is the real case; budget shrunk here so 65536 nsub=2
-    exercises it fast in interpret mode). Both the contiguous production
-    layout and the gathered (arbitrary-start) path split correctly."""
-    import jax as _jax
-
-    from pyspectrogram_tpu.kernels import sti_pallas
-    from pyspectrogram_tpu.ops import stft as stft_mod
-
-    nfft, nint, nsub, ntime = 1 << 16, 2, 2, 2
-    monkeypatch.setattr(sti_pallas, "BIG_VMEM_BUDGET", 7_000_000)
-    assert sti_pallas.pallas_auto_profitable(nfft, nint, 1, "welch",
-                                             contiguous=contiguous)
-    assert not sti_pallas.pallas_supported(nfft, nint, nsub, "welch")
-
-    # pretend we're on TPU so auto picks the kernel path, but force the
-    # kernels themselves into interpret mode (we're really on CPU)
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    real_make = sti_pallas.make_pallas_sti_psd
-
-    def make_interpret(**kw):
-        return real_make(**{**kw, "interpret": True})
-
-    monkeypatch.setattr(sti_pallas, "make_pallas_sti_psd", make_interpret)
-
-    rng = np.random.default_rng(1)
-    samples = rng.standard_normal(
-        (nsub * 2, nfft * nint * ntime)).astype(np.float32)
-    starts = np.arange(ntime, dtype=np.int32) * nfft * nint
-    fn = stft_mod.make_sti_fn_pm(nfft=nfft, nint=nint, mode="welch",
-                                 fft_impl="auto", contiguous=contiguous,
-                                 eps=3e-15)
-    got = fn(jnp.asarray(samples), jnp.asarray(starts))
-    ref = stft_mod.make_sti_fn_pm(nfft=nfft, nint=nint, mode="welch",
-                                  fft_impl="xla", contiguous=contiguous,
-                                  eps=3e-15)(jnp.asarray(samples),
-                                             jnp.asarray(starts))
-    assert np.asarray(got["sxx_dbfs"]).shape == (ntime, nsub, nfft)
-    np.testing.assert_allclose(np.asarray(got["sxx_dbfs"]),
-                               np.asarray(ref["sxx_dbfs"]),
-                               rtol=0, atol=2e-2)  # dB tolerance
-
-
-def test_auto_impl_falls_back_to_xla_when_nsub_exceeds_vmem(monkeypatch):
-    """fft_impl='auto' must re-evaluate pallas support with the ACTUAL nsub
-    at trace time and fall back to XLA instead of raising (ADVICE round 1:
-    nsub>=3 at nfft=32768/nint=4 crashed every auto-path consumer)."""
-    import jax as _jax
-
-    from pyspectrogram_tpu.kernels import sti_pallas
-    from pyspectrogram_tpu.ops import stft as stft_mod
-
-    nfft, nint, nsub, ntime = 4096, 4, 100, 4
-    assert sti_pallas.pallas_auto_profitable(nfft, nint, 1, "welch")
-    assert not sti_pallas.pallas_supported(nfft, nint, nsub, "welch")
-
-    # pretend we're on TPU so auto would otherwise reach for the kernel,
-    # and make any pallas build an immediate failure
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-
-    def boom(**kw):  # pragma: no cover - failure path
-        raise AssertionError("pallas kernel built for unsupported nsub")
-
-    monkeypatch.setattr(sti_pallas, "make_pallas_sti_psd", boom)
-
-    fn = stft_mod.make_sti_fn_pm(nfft=nfft, nint=nint, mode="welch",
-                                 fft_impl="auto", eps=2e-15)
-    rng = np.random.default_rng(0)
-    samples = jnp.asarray(
-        rng.standard_normal((nsub * 2, nfft * nint * ntime)).astype(np.float32))
-    starts = jnp.asarray(
-        np.arange(ntime, dtype=np.int32) * nfft * nint)
-    out = fn(samples, starts)
-    assert np.asarray(out["sxx_dbfs"]).shape == (ntime, nsub, nfft)
-    assert np.isfinite(np.asarray(out["sxx_med_dbfs"])).all()
-
-
 def test_reference_ntime_ceiling_structurally_supported():
     """The reference's ntime spinbox tops out at 100,000
     (drfview.py:501); a request at that ceiling must flow through the
-    pipeline core + exact median without special-casing (the pallas
-    median's VMEM gate routes this to the XLA bisection)."""
+    pipeline core + exact median without special-casing (the 33-step
+    bisection tier)."""
     nfft, ntime = 256, 100_000
     rng = np.random.default_rng(0)
     pm = (0.01 * rng.standard_normal((2, nfft * ntime))).astype(np.float32)
@@ -230,8 +148,7 @@ def test_reference_ntime_ceiling_structurally_supported():
 
 def test_reference_nint_ceiling_structurally_supported():
     """The reference's nint spinbox tops out at 100,000 (drfview.py:489);
-    true-welch averaging at that ceiling must run (the column kernel's
-    block budget rejects it, so auto routes to XLA) and actually average:
+    true-welch averaging at that ceiling must run and actually average:
     white noise over 1e5 segments leaves a near-flat PSD."""
     nfft, nint, ntime = 256, 100_000, 2
     rng = np.random.default_rng(0)
@@ -282,3 +199,207 @@ def test_randomized_config_matches_oracle(seed):
     np.testing.assert_allclose(
         np.moveaxis(np.asarray(out["sxx_med_dbfs"]), -1, 0),
         oracle.to_dbfs(med), atol=0.05)
+
+
+def _inputs(nfft, nint, ntime, nsub, seed=0):
+    rng = np.random.default_rng(seed)
+    nsamp = nfft * nint * ntime + 64
+    packed = rng.standard_normal((nsamp, nsub, 2)).astype(np.float32)
+    starts = np.linspace(0, nsamp - nfft * nint, ntime).astype(np.int32)
+    return packed, starts
+
+
+def test_gemm_fft_factorization_exact():
+    from pyspectrogram_tpu.kernels.gemm_fft import gemm_fft_numpy, make_plan
+
+    rng = np.random.default_rng(1)
+    for nfft in (256, 1024, 4096):
+        x = rng.standard_normal((2, nfft)) + 1j * rng.standard_normal((2, nfft))
+        Xr, Xi = gemm_fft_numpy(x.real, x.imag, make_plan(nfft, np.float64))
+        want = np.fft.fft(x, axis=-1)
+        np.testing.assert_allclose(Xr + 1j * Xi, want, rtol=1e-11, atol=1e-9)
+
+
+def test_make_sti_fn_pm_layouts_agree():
+    """Plane-major factory (XLA impl) == time-major factory on the same
+    logical samples."""
+    nfft, nint, ntime, nsub = 128, 2, 5, 3
+    packed, starts = _inputs(nfft, nint, ntime, nsub, seed=4)
+    tm = stft.make_sti_fn(nfft=nfft, nint=nint)(
+        jnp.asarray(packed), jnp.asarray(starts))
+    pm = stft.make_sti_fn_pm(nfft=nfft, nint=nint, fft_impl="xla")(
+        jnp.asarray(stft.to_plane_major(packed)), jnp.asarray(starts))
+    np.testing.assert_allclose(np.asarray(pm["sxx_dbfs"]),
+                               np.asarray(tm["sxx_dbfs"]), atol=1e-4)
+    np.testing.assert_allclose(np.asarray(pm["sxx_med_dbfs"]),
+                               np.asarray(tm["sxx_med_dbfs"]), atol=1e-4)
+
+
+def test_make_sti_fn_pm_int16_input():
+    rng = np.random.default_rng(5)
+    nfft, ntime = 128, 4
+    pm16 = rng.integers(-2 ** 14, 2 ** 14, (2, nfft * ntime)).astype(np.int16)
+    starts = (np.arange(ntime) * nfft).astype(np.int32)
+    ref = 2.0 ** 15.5
+    out16 = stft.make_sti_fn_pm(nfft=nfft, ref=ref, fft_impl="xla")(
+        jnp.asarray(pm16), jnp.asarray(starts))
+    outf = stft.make_sti_fn_pm(nfft=nfft, ref=ref, fft_impl="xla")(
+        jnp.asarray(pm16.astype(np.float32)), jnp.asarray(starts))
+    np.testing.assert_allclose(np.asarray(out16["sxx_dbfs"]),
+                               np.asarray(outf["sxx_dbfs"]), atol=1e-5)
+
+
+def test_make_sti_fn_pm_minmax_summary():
+    rng = np.random.default_rng(8)
+    nfft, ntime = 128, 6
+    pm = rng.standard_normal((2, nfft * ntime)).astype(np.float32)
+    starts = (np.arange(ntime) * nfft).astype(np.int32)
+    out = stft.make_sti_fn_pm(nfft=nfft, fft_impl="xla", return_minmax=True,
+                              return_linear=True)(
+        jnp.asarray(pm), jnp.asarray(starts))
+    p = np.asarray(out["sxx"])
+    np.testing.assert_allclose(
+        np.asarray(out["sxx_min_dbfs"]),
+        10 * np.log10(p.min(axis=0) + 1e-15), rtol=1e-6)
+    np.testing.assert_allclose(
+        np.asarray(out["sxx_max_dbfs"]),
+        10 * np.log10(p.max(axis=0) + 1e-15), rtol=1e-6)
+
+
+def _pm_oracle_linear(pm, starts, nfft, nint, mode, ref=1.0):
+    """NumPy oracle (ops.reference) on plane-major planes -> (ntime, nsub,
+    nfft) linear power, the device layout."""
+    x = (pm[0::2].astype(np.float64) + 1j * pm[1::2].astype(np.float64)).T
+    frame_len = nfft * nint
+    block = np.stack([x[s:s + frame_len] for s in starts], axis=1) / ref
+    return np.moveaxis(oracle.sti_psd(block, nfft, nint=nint, mode=mode),
+                       0, -1)
+
+
+def _plain_case(nfft, nint, mode, contiguous, nsub=2, ntime=5, seed=0,
+                dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    frame_len = nfft * nint
+    if contiguous:
+        nsamp = frame_len * ntime
+        starts = (np.arange(ntime) * frame_len).astype(np.int32)
+    else:
+        nsamp = frame_len * ntime + 257
+        starts = np.sort(rng.choice(nsamp - frame_len + 1, size=ntime,
+                                    replace=False)).astype(np.int32)
+    if dtype == np.int16:
+        pm = rng.integers(-2 ** 14, 2 ** 14, (nsub * 2, nsamp)).astype(
+            np.int16)
+    else:
+        pm = rng.standard_normal((nsub * 2, nsamp)).astype(np.float32)
+    return pm, starts
+
+
+@pytest.mark.parametrize("contiguous", [True, False])
+@pytest.mark.parametrize("mode,nint", [("welch", 1), ("welch", 3),
+                                       ("parity", 1), ("parity", 3)])
+def test_plain_pm_path_matches_oracle(mode, nint, contiguous):
+    """The production plane-major program (XLA FFT body) against the
+    NumPy oracle: both modes, single and multi-segment, contiguous
+    ladder and arbitrary gathered starts."""
+    nfft = 256
+    pm, starts = _plain_case(nfft, nint, mode, contiguous)
+    out = stft.make_sti_fn_pm(nfft=nfft, nint=nint, mode=mode,
+                              contiguous=contiguous, return_linear=True)(
+        jnp.asarray(pm), jnp.asarray(starts))
+    want = _pm_oracle_linear(pm, starts, nfft, nint, mode)
+    np.testing.assert_allclose(np.asarray(out["sxx"]), want, rtol=2e-4,
+                               atol=1e-7)
+    np.testing.assert_array_equal(
+        np.asarray(out["sxx_med"]),
+        np.median(np.asarray(out["sxx"]), axis=0).astype(np.float32))
+
+
+@pytest.mark.parametrize("nfft", [256, 1024, 4096, 65536, 262144])
+def test_plain_pm_path_matches_oracle_nfft_sweep(nfft):
+    """The same body from the small display FFTs up to 2^18 (the range
+    the removed big-transform kernels used to cover): welch nint 2."""
+    nint, ntime = 2, max(1, min(4, (1 << 18) // nfft))
+    pm, starts = _plain_case(nfft, nint, "welch", True, nsub=1, ntime=ntime,
+                             seed=nfft % 97)
+    out = stft.make_sti_fn_pm(nfft=nfft, nint=nint, contiguous=True,
+                              return_linear=True)(
+        jnp.asarray(pm), jnp.asarray(starts))
+    want = _pm_oracle_linear(pm, starts, nfft, nint, "welch")
+    np.testing.assert_allclose(np.asarray(out["sxx"]), want, rtol=2e-3,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("contiguous", [True, False])
+def test_plain_pm_path_int16_with_ref_matches_oracle(contiguous):
+    """Raw int16 planes widen on device and the full-scale reference
+    rides the power scale: equal to normalizing on the host first."""
+    ref = 2.0 ** 15.5
+    nfft, nint = 512, 2
+    pm, starts = _plain_case(nfft, nint, "welch", contiguous, dtype=np.int16)
+    out = stft.make_sti_fn_pm(nfft=nfft, nint=nint, ref=ref,
+                              contiguous=contiguous, return_linear=True)(
+        jnp.asarray(pm), jnp.asarray(starts))
+    want = _pm_oracle_linear(pm, starts, nfft, nint, "welch", ref=ref)
+    np.testing.assert_allclose(np.asarray(out["sxx"]), want, rtol=2e-4,
+                               atol=1e-12)
+
+
+def test_plain_pm_path_ref_scaling():
+    """ref scales linear power by exactly 1/ref^2."""
+    nfft = 256
+    pm, starts = _plain_case(nfft, 1, "welch", True, seed=3)
+    ref = 2.0 ** 15.5
+    a = stft.make_sti_fn_pm(nfft=nfft, ref=ref, return_linear=True)(
+        jnp.asarray(pm), jnp.asarray(starts))["sxx"]
+    b = stft.make_sti_fn_pm(nfft=nfft, return_linear=True)(
+        jnp.asarray(pm), jnp.asarray(starts))["sxx"]
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b) / ref ** 2,
+                               rtol=1e-6)
+
+
+def test_plain_pm_path_tile_mode_matches_float_path():
+    """Display-tile mode quantizes the same spectra the float path emits."""
+    from pyspectrogram_tpu.display.tile import make_tile_spec, tile_from_db
+
+    nfft, sr = 1024, 1e6
+    pm, starts = _plain_case(nfft, 1, "welch", True, ntime=6, seed=9)
+    freqs = stft.shifted_freqs(nfft, sr)
+    spec = make_tile_spec(freqs, (-400.0, 400.0), (-30.0, 10.0))
+    f = stft.make_sti_fn_pm(nfft=nfft, contiguous=True)(
+        jnp.asarray(pm), jnp.asarray(starts))
+    t = stft.make_sti_fn_pm(nfft=nfft, contiguous=True, tile=spec)(
+        jnp.asarray(pm), jnp.asarray(starts))
+    want = tile_from_db(np.asarray(f["sxx_dbfs"]), spec)
+    got = np.asarray(t["tile"])
+    assert got.shape == want.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("factory", ["single", "sharded_body", "batched"])
+def test_fft_impl_pallas_raises(factory):
+    """The Mosaic kernels are gone: an explicit fft_impl="pallas" is an
+    error at build time on every entry point, never a silent fallback."""
+    from pyspectrogram_tpu.models.batch import make_batched_sti_fn_pm
+    from pyspectrogram_tpu.parallel.sharded import make_local_sti
+
+    build = {
+        "single": lambda: stft.make_sti_fn_pm(nfft=256, fft_impl="pallas"),
+        "sharded_body": lambda: make_local_sti(nfft=256, fft_impl="pallas"),
+        "batched": lambda: make_batched_sti_fn_pm(nfft=256, ntime=4,
+                                                  fft_impl="pallas"),
+    }[factory]
+    with pytest.raises(ValueError, match="fft_impl"):
+        build()
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_fft_impl_auto_and_xla_build_the_same_program(impl):
+    nfft = 256
+    pm, starts = _plain_case(nfft, 1, "welch", True, seed=2)
+    a = stft.make_sti_fn_pm(nfft=nfft, fft_impl=impl)(
+        jnp.asarray(pm), jnp.asarray(starts))
+    b = stft.make_sti_fn_pm(nfft=nfft, fft_impl="xla")(
+        jnp.asarray(pm), jnp.asarray(starts))
+    np.testing.assert_array_equal(np.asarray(a["sxx_dbfs"]),
+                                  np.asarray(b["sxx_dbfs"]))

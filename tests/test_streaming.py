@@ -17,9 +17,7 @@ def _packed(nsamp, nsub, seed=0):
 
 def _pm(packed):
     """time-major (nsamp, nsub, 2) -> plane-major (nsub*2, nsamp)."""
-    from pyspectrogram_tpu.kernels.sti_pallas import to_plane_major
-
-    return to_plane_major(packed)
+    return stft.to_plane_major(packed)
 
 
 def test_streaming_matches_batch():
@@ -224,9 +222,8 @@ def test_mesh_streaming_overlap_hop_matches_single_device():
 
 
 def test_mesh_streaming_median_bisection_path():
-    """Mesh median with > 32 valid columns (the bisection tier that the
-    pallas kernel accelerates per shard on TPU — r3 weak #1): shard_map'd
-    median equals the single-device one."""
+    """Mesh median with > 32 valid columns (the bisection tier):
+    shard_map'd median equals the single-device one."""
     import jax
 
     from pyspectrogram_tpu.parallel import make_mesh
@@ -319,42 +316,6 @@ def test_streaming_precision_knob_accepted():
         outs.append(np.asarray(cols))
     np.testing.assert_array_equal(outs[0], outs[1])
     np.testing.assert_array_equal(outs[0], outs[2])
-
-
-def test_streaming_per_sub_big_kernel_split(monkeypatch):
-    """The streaming core's per-subchannel big-kernel split (multi-sub
-    working set overflows VMEM, one subchannel fits — shared policy
-    sti_pallas.pallas_per_sub_profitable) must produce the same columns
-    as the XLA path. CPU runs it via a monkeypatched backend +
-    interpret-mode kernels, like the batch-path test."""
-    import jax as _jax
-
-    from pyspectrogram_tpu.kernels import sti_pallas
-
-    nfft, nsub, k = 1 << 16, 2, 2
-    monkeypatch.setattr(sti_pallas, "BIG_VMEM_BUDGET", 7_000_000)
-    assert sti_pallas.pallas_per_sub_profitable(nfft, 1, nsub, "welch",
-                                                contiguous=True)
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    real_make = sti_pallas.make_pallas_sti_psd
-    monkeypatch.setattr(
-        sti_pallas, "make_pallas_sti_psd",
-        lambda **kw: real_make(**{**kw, "interpret": True}))
-
-    rng = np.random.default_rng(2)
-    block = rng.standard_normal((nsub * 2, nfft * k)).astype(np.float32)
-
-    s = StreamingSti(nfft=nfft, nsub=nsub, block_len=nfft * k, ring_len=4)
-    assert s._push is not None
-    st, cols = s.push(s.init_state(), jnp.asarray(block))
-
-    # XLA reference on the same block (backend monkeypatch still active,
-    # so force the non-pallas core by failing the per-sub predicate)
-    monkeypatch.setattr(sti_pallas, "BIG_VMEM_BUDGET", 0)
-    s2 = StreamingSti(nfft=nfft, nsub=nsub, block_len=nfft * k, ring_len=4)
-    st2, cols2 = s2.push(s2.init_state(), jnp.asarray(block))
-    np.testing.assert_allclose(np.asarray(cols), np.asarray(cols2),
-                               rtol=0, atol=2e-2)  # dB tolerance
 
 
 def test_refresh_view_matches_separate_calls():
@@ -574,3 +535,67 @@ def test_mesh_refresh_view_fused_single_dispatch():
             np.testing.assert_array_equal(v_m, v2)
         np.testing.assert_allclose(med_m, med_s, atol=1e-4)
         np.testing.assert_allclose(med_m, med2, atol=1e-5)
+
+
+def _overlap_oracle(buf, nfft, nint, hop, k, mode="welch", beta=1.7):
+    """NumPy overlap-hop STI: column t's frame at element offset t*hop."""
+    from pyspectrogram_tpu.ops.windows import get_window
+
+    nsub = buf.shape[0] // 2
+    frame_len = nfft * nint
+    win = get_window(("kaiser", beta), nfft)
+    c = (buf[0::2] + 1j * buf[1::2]).astype(np.complex128)
+    nseg = nint if mode == "welch" else 1
+    cols = np.empty((k, nsub, nfft))
+    for t in range(k):
+        fr = c[:, t * hop : t * hop + frame_len][:, : nseg * nfft]
+        segs = fr.reshape(nsub, nseg, nfft)
+        p = (np.abs(np.fft.fft(win * segs, axis=-1)) ** 2).mean(axis=1)
+        cols[t] = np.fft.fftshift(p / win.sum() ** 2, axes=-1)
+    return cols
+
+
+@pytest.mark.parametrize("nfft,nint,hop,mode,k", [
+    (1024, 1, 512, "welch", 4),     # classic 50% overlap
+    (1024, 2, 1024, "welch", 4),    # hop = nfft, frame 2*nfft
+    (1024, 1, 384, "welch", 4),     # hop divides neither nfft nor 128
+    (2048, 2, 2048, "parity", 4),   # parity: first nfft of each frame
+    (1024, 1, 512, "welch", 16),    # deeper block
+    (1024, 1, 512, "welch", 5),     # odd column count per push
+    (1024, 1, 256, "welch", 16),    # 75% overlap
+    (256, 3, 128, "welch", 32),     # many short overlapping frames
+])
+def test_overlap_hop_push_matches_oracle(nfft, nint, hop, mode, k):
+    """Overlap-save pushes (hop < frame_len) through StreamingSti: the
+    first push's columns (zero carry) and a second push's columns (carry
+    from the first block) equal the windowed-FFT oracle on the same
+    stream."""
+    nsub = 2
+    frame_len = nfft * nint
+    rng = np.random.default_rng(5)
+    blocks = rng.standard_normal((2, nsub * 2, k * hop)).astype(np.float32)
+    s = StreamingSti(nfft=nfft, nint=nint, nsub=nsub, block_len=k * hop,
+                     hop=hop, mode=mode, ring_len=4 * k)
+    state = s.init_state()
+    got = []
+    for b in blocks:
+        state, cols = s.push(state, jnp.asarray(b))
+        got.append(np.asarray(cols))
+    stream = np.concatenate(
+        [np.zeros((nsub * 2, frame_len - hop), np.float32)] + list(blocks),
+        axis=1)
+    want = _overlap_oracle(stream, nfft, nint, hop, 2 * k, mode)
+    np.testing.assert_allclose(np.concatenate(got),
+                               10 * np.log10(want + 1e-15), atol=2e-3)
+
+
+@pytest.mark.parametrize("backend,donated", [("cpu", ()), ("gpu", (0,))])
+def test_donation_gate(monkeypatch, backend, donated):
+    """The push donates its state everywhere but the CPU backend, so on
+    the GPU the ring updates in place instead of being copied per push."""
+    import jax
+
+    from pyspectrogram_tpu.models import streaming
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert streaming.donate_argnums() == donated
